@@ -6,12 +6,12 @@ from utree_tpu.index import DeviceIndexArrays
 from utree_tpu.pipeline import SearchPipeline
 
 
-def test_resume_produces_identical_output(toy, tmp_path):
-    idx = DeviceIndexArrays.from_ctr(str(toy["golden"]["ctr"]))
+def test_resume_produces_identical_output(spec, tmp_path):
+    idx = DeviceIndexArrays.from_ctr(str(spec["ctr"]))
     pipe = SearchPipeline(idx, do_rc=False, batch_size=128)
 
     full = tmp_path / "full.txt"
-    pipe.search_file(toy["reads"], str(full))
+    pipe.search_file(spec["reads"], str(full))
     assert not (tmp_path / "full.txt.ckpt").exists()
 
     # simulate an interruption: run a copy that stops after 3 batches
@@ -48,7 +48,7 @@ def test_resume_produces_identical_output(toy, tmp_path):
     pipe._vote_packed = bomb_packed
     pipe._format_devvote = bomb_dev
     try:
-        pipe.search_file(toy["reads"], str(part))
+        pipe.search_file(spec["reads"], str(part))
         raise AssertionError("should have been interrupted")
     except Stop:
         pass
@@ -59,22 +59,22 @@ def test_resume_produces_identical_output(toy, tmp_path):
     partial_size = part.stat().st_size
     assert 0 < partial_size < full.stat().st_size
 
-    n = pipe.search_file(toy["reads"], str(part), resume=True)
+    n = pipe.search_file(spec["reads"], str(part), resume=True)
     assert n == 1000
     assert part.read_bytes() == full.read_bytes()
     assert not (tmp_path / "part.txt.ckpt").exists()
 
 
-def test_resume_with_record_range(toy, tmp_path):
-    """Resume + record_range must not double-add the range start (round-3
-    verified bug: ckpt stored absolute `done` but resume added range_lo again,
-    silently skipping records)."""
-    idx = DeviceIndexArrays.from_ctr(str(toy["golden"]["ctr"]))
+def test_resume_with_record_range(spec, tmp_path):
+    """Resume + record_range must not double-add the range start (regression:
+    ckpt stored absolute `done` but resume added range_lo again, silently
+    skipping records)."""
+    idx = DeviceIndexArrays.from_ctr(str(spec["ctr"]))
     pipe = SearchPipeline(idx, do_rc=False, batch_size=128)
 
     lo, hi = 300, 800
     full = tmp_path / "range_full.txt"
-    pipe.search_file(toy["reads"], str(full), record_range=(lo, hi))
+    pipe.search_file(spec["reads"], str(full), record_range=(lo, hi))
 
     part = tmp_path / "range_part.txt"
 
@@ -107,7 +107,7 @@ def test_resume_with_record_range(toy, tmp_path):
     pipe._vote_packed = bomb_packed
     pipe._format_devvote = bomb_dev
     try:
-        pipe.search_file(toy["reads"], str(part), record_range=(lo, hi))
+        pipe.search_file(spec["reads"], str(part), record_range=(lo, hi))
         raise AssertionError("should have been interrupted")
     except Stop:
         pass
@@ -116,7 +116,7 @@ def test_resume_with_record_range(toy, tmp_path):
     pipe._format_devvote = orig_dev
     assert (tmp_path / "range_part.txt.ckpt").exists()
 
-    n = pipe.search_file(toy["reads"], str(part), resume=True,
+    n = pipe.search_file(spec["reads"], str(part), resume=True,
                          record_range=(lo, hi))
     assert n == hi - lo
     assert part.read_bytes() == full.read_bytes()

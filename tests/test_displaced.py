@@ -1,7 +1,8 @@
-"""Seeded-displacement canonical index ("tier S", round 3): exact equality
-with the probe-replay path on both strands, e2e pipeline goldens, and the
-placement invariants (every entry findable, spill bounded)."""
+"""Seeded-displacement canonical index ("tier S"): exact equality with the
+probe-replay path on both strands, e2e pipeline equality with the host spec,
+and the placement invariants (every entry findable, spill bounded)."""
 
+import jax
 import numpy as np
 import pytest
 
@@ -13,6 +14,10 @@ from utree_tpu.hash_index import (
 )
 from utree_tpu.index import DeviceIndexArrays
 from utree_tpu.lookup import lookup_kmers, lookup_kmers_canonical, lookup_kmers_displaced
+from utree_tpu.memory import table_budget
+
+# byte cap for the tables, from the device they are placed onto
+CAP = table_budget(jax.devices()[0])
 
 
 def _lanes(words):
@@ -35,7 +40,7 @@ def _displaced_case(words, ixs, nlab, queries, valid=None, wide=False):
     rc = _rc64(queries)
     rpre, rhi, rlo = _lanes(rc)
     ref_r = np.asarray(lookup_kmers(bs, rpre, rhi, rlo, valid, index.probe_iters, bad))
-    built = build_displaced_index(index)
+    built = build_displaced_index(index, t1_cap=CAP)
     assert built.wide == wide
     dt = built.device_put()
     ixa, ixb = lookup_kmers_displaced(dt, qpre, qhi, qlo, valid,
@@ -72,7 +77,7 @@ def test_displaced_every_entry_findable():
 
 
 def test_displaced_wide_labels():
-    """IXTYPE=u32 (>=64K labels) uses 2-slot 32B rows — still 1 sector."""
+    """IXTYPE=u32 (>=64K labels) uses 2-slot 32B rows."""
     rng = np.random.default_rng(13)
     words = np.unique(rng.integers(0, 1 << 64, size=40_000, dtype=np.uint64))
     nlab = 70_000
@@ -90,7 +95,7 @@ def test_displaced_invalid_windows_masked():
     valid = rng.random(600) < 0.5
     cfg = UTreeConfig()
     index = DeviceIndexArrays.from_build(words, ixs, [b"l%d" % i for i in range(40)], cfg)
-    built = build_displaced_index(index)
+    built = build_displaced_index(index, t1_cap=CAP)
     qpre, qhi, qlo = _lanes(q)
     ixa, ixb = lookup_kmers_displaced(built.device_put(), qpre, qhi, qlo, valid,
                                       bad_ix=cfg.bad_ix, do_rc=True)
@@ -98,47 +103,47 @@ def test_displaced_invalid_windows_masked():
     assert (np.asarray(ixb)[~valid] == cfg.bad_ix).all()
 
 
-def test_displaced_matches_canonical_on_built_db(toy):
+def test_displaced_matches_canonical_on_built_db(spec):
     """On a real built DB (quirky bins included) displaced == canonical."""
-    index = DeviceIndexArrays.from_ctr(str(toy["golden"]["ctr"]), UTreeConfig())
+    index = DeviceIndexArrays.from_ctr(str(spec["ctr"]), UTreeConfig())
     cfg = index.config
     rng = np.random.default_rng(15)
     q = rng.integers(0, 1 << 64, size=4000, dtype=np.uint64)
     qpre, qhi, qlo = _lanes(q)
     valid = np.ones(len(q), bool)
-    canon = build_canonical_hash_index(index)
+    canon = build_canonical_hash_index(index, t1_cap=CAP)
     ca, cb = lookup_kmers_canonical(canon.device_put(), qpre, qhi, qlo, valid,
                                     slots=canon.slots, slots2=canon.slots2,
                                     bad_ix=cfg.bad_ix, do_rc=True)
-    disp = build_displaced_index(index)
+    disp = build_displaced_index(index, t1_cap=CAP)
     da, db = lookup_kmers_displaced(disp.device_put(), qpre, qhi, qlo, valid,
                                     bad_ix=cfg.bad_ix, do_rc=True)
     assert np.array_equal(np.sort(np.stack([np.asarray(ca), np.asarray(cb)]), 0),
                           np.sort(np.stack([np.asarray(da), np.asarray(db)]), 0))
 
 
-def test_pipeline_displaced_golden(toy, tmp_path):
-    """Full pipeline with lookup_mode='displaced' == oracle classifications."""
+def test_pipeline_displaced_golden(spec, tmp_path):
+    """Full pipeline with lookup_mode='displaced' == host spec classifications."""
     from utree_tpu.pipeline import SearchPipeline
 
-    index = DeviceIndexArrays.from_ctr(str(toy["golden_rc"]["ctr"]), UTreeConfig())
+    index = DeviceIndexArrays.from_ctr(str(spec["ctr"]), UTreeConfig())
     out = tmp_path / "cls.txt"
     pipe = SearchPipeline(index, do_rc=True, batch_size=128,
                           lookup_mode="displaced")
     assert pipe.table_kind == "displaced"
-    pipe.search_file(toy["reads"], str(out))
-    assert out.read_bytes() == toy["golden_rc"]["classifications"].read_bytes()
+    pipe.search_file(spec["reads"], str(out))
+    assert out.read_bytes() == spec["cls_rc"].read_bytes()
 
 
-def test_pipeline_displaced_mesh_golden(toy, tmp_path):
-    """Displaced table through the multi-chip product path."""
+def test_pipeline_displaced_mesh_golden(spec, tmp_path):
+    """Displaced table through the multi-device product path."""
     from utree_tpu.pipeline import SearchPipeline
 
-    index = DeviceIndexArrays.from_ctr(str(toy["golden_rc"]["ctr"]), UTreeConfig())
+    index = DeviceIndexArrays.from_ctr(str(spec["ctr"]), UTreeConfig())
     out = tmp_path / "cls.txt"
     SearchPipeline(index, do_rc=True, batch_size=128, lookup_mode="displaced",
-                   devices=8).search_file(toy["reads"], str(out))
-    assert out.read_bytes() == toy["golden_rc"]["classifications"].read_bytes()
+                   devices=8).search_file(spec["reads"], str(out))
+    assert out.read_bytes() == spec["cls_rc"].read_bytes()
 
 
 def test_straggler_pass_consistency_under_contention():
@@ -164,7 +169,7 @@ def test_straggler_pass_consistency_under_contention():
     nseed = 2048  # lambda ~= 29 keys/bucket: band loop cannot seat these
     t1, seeds32, spilled = place_displaced_core(
         key_lo, key_hi, vals, cpre, chi, clo, ng,
-        load=0.9, spill_budget=ng, nseed=nseed)
+        load=0.9, spill_budget=ng, nseed=nseed, t1_cap=CAP)
     assert 0 < len(spilled) < ng  # contention actually happened, not total loss
 
     seed_of = np.frombuffer(seeds32.tobytes(), np.uint8)[:nseed]
@@ -193,13 +198,14 @@ def test_respill_t3_migration_equal():
     queries = np.concatenate([words[::7], rng.integers(0, 1 << 40, 300, dtype=np.uint64)])
     cfg = UTreeConfig()
     index = DeviceIndexArrays.from_build(words, ixs, [b"l%d" % i for i in range(50)], cfg)
-    built = build_displaced_index(index, load=0.98, spill_budget=len(words))
+    built = build_displaced_index(index, load=0.98, spill_budget=len(words),
+                                  t1_cap=CAP)
     assert built.t3.shape[0] > 8
     qpre, qhi, qlo = _lanes(queries)
     valid = np.ones(len(queries), bool)
     a = np.asarray(lookup_kmers_displaced(built.device_put(), qpre, qhi, qlo,
                                           valid, bad_ix=65535, do_rc=False))
-    t3b = respill_displaced_t3(built.t3, built.wide)
+    t3b = respill_displaced_t3(built.t3, built.wide, t1_cap=CAP)
     import dataclasses as dc
     moved = dc.replace(built, t3=t3b, slots3=t3b.shape[1] // 3)
     b = np.asarray(lookup_kmers_displaced(moved.device_put(), qpre, qhi, qlo,

@@ -1,6 +1,7 @@
 """Hash lookup path: exact equality with the probe-replay path, including the
 compressor's quirky bin-table cases."""
 
+import jax
 import numpy as np
 import pytest
 
@@ -8,6 +9,10 @@ from utree_tpu.config import UTreeConfig
 from utree_tpu.hash_index import _rc64, build_canonical_hash_index, build_hash_index
 from utree_tpu.index import DeviceIndexArrays
 from utree_tpu.lookup import lookup_kmers, lookup_kmers_canonical, lookup_kmers_hash
+from utree_tpu.memory import table_budget
+
+# byte cap for the tables, from the device they are placed onto
+CAP = table_budget(jax.devices()[0])
 
 
 def _check_equal(index, cfg, words):
@@ -93,7 +98,7 @@ def _canonical_case(words, ixs, nlab, queries, valid=None):
     rc = _rc64(queries)
     rpre, rhi, rlo = _lanes(rc)
     ref_r = np.asarray(lookup_kmers(bs, rpre, rhi, rlo, valid, index.probe_iters, cfg.bad_ix))
-    built = build_canonical_hash_index(index)
+    built = build_canonical_hash_index(index, t1_cap=CAP)
     ch = built.device_put()
     ixa, ixb = lookup_kmers_canonical(ch, qpre, qhi, qlo, valid, slots=built.slots,
                                       slots2=built.slots2, bad_ix=cfg.bad_ix, do_rc=True)
@@ -149,7 +154,7 @@ def test_canonical_invalid_windows_masked():
     valid = rng.random(len(q)) < 0.5
     cfg = UTreeConfig()
     index = DeviceIndexArrays.from_build(words, ixs, [b"l%d" % i for i in range(30)], cfg)
-    built = build_canonical_hash_index(index)
+    built = build_canonical_hash_index(index, t1_cap=CAP)
     ch = built.device_put()
     qpre, qhi, qlo = _lanes(q)
     ixa, ixb = lookup_kmers_canonical(ch, qpre, qhi, qlo, valid, slots=built.slots,
@@ -181,7 +186,7 @@ def test_canonical_no_spill_skips_t2():
     ixs = rng.integers(0, 5, size=len(words)).astype(np.int64)
     cfg = UTreeConfig()
     index = DeviceIndexArrays.from_build(words, ixs, [b"l%d" % i for i in range(5)], cfg)
-    built = build_canonical_hash_index(index)
+    built = build_canonical_hash_index(index, t1_cap=CAP)
     assert built.t2.shape[0] == 8
     q = np.concatenate([words, rng.integers(0, 1 << 64, size=200, dtype=np.uint64)])
     _canonical_case(words, ixs, 5, q)
@@ -215,10 +220,11 @@ def test_canonical_geometry_tiers_exact(slots, load, slots2, slots3):
 
     if slots3:
         g = _canonical_groups(index)
-        built = _place_canonical(*g, slots, load, slots2, 1 << 27, slots3=slots3)
+        built = _place_canonical(*g, slots, load, slots2, 1 << 27, slots3=slots3,
+                                 t1_cap=CAP)
         assert built.t3.shape[0] > 8, "t3 tail not exercised"
     else:
-        built = build_canonical_hash_index(index, slots=slots, load=load, slots2=slots2)
+        built = build_canonical_hash_index(index, slots=slots, load=load, slots2=slots2, t1_cap=CAP)
     assert built.t1.shape[1] == slots * 3
     ch = built.device_put()
     ixa, ixb = lookup_kmers_canonical(ch, qpre, qhi, qlo, valid, slots=built.slots,
@@ -247,7 +253,7 @@ def test_canonical_wide_labels_exact():
     rc = _rc64(queries)
     rpre, rhi, rlo = _lanes(rc)
     ref_r = np.asarray(lookup_kmers(bs, rpre, rhi, rlo, valid, index.probe_iters, bad))
-    built = build_canonical_hash_index(index)
+    built = build_canonical_hash_index(index, t1_cap=CAP)
     assert built.t1.shape[1] == built.slots * 4, "expected WIDE slots"
     ch = built.device_put()
     ixa, ixb = lookup_kmers_canonical(ch, qpre, qhi, qlo, valid, slots=built.slots,

@@ -1,17 +1,17 @@
-"""Long-read (position-sharded) classification vs the reference oracle."""
+"""Long-read (position-sharded) classification vs the host spec."""
 
 import numpy as np
 
 from utree_tpu.index import DeviceIndexArrays
-from utree_tpu.oracle import run_oracle_pipeline
 from utree_tpu.pipeline import SearchPipeline
+from utree_tpu.search_host import HostIndex, search_file
 
 
-def test_long_reads_identical_to_oracle(toy, tmp_path):
+def test_long_reads_identical_to_oracle(spec, tmp_path):
     """Queries up to ~200Kb (reference supports 16Mb lines, itree.c:836):
-    chunked long-read path must equal the reference byte-for-byte."""
+    chunked long-read path must equal the host spec byte-for-byte."""
     rng = np.random.default_rng(99)
-    refs = toy["records"]
+    refs = spec["records"]
     reads_path = tmp_path / "long_reads.fa"
     bases = np.frombuffer(b"ACGT", np.uint8)
     with open(reads_path, "wb") as f:
@@ -28,15 +28,15 @@ def test_long_reads_identical_to_oracle(toy, tmp_path):
             seq = b"".join(parts)
             f.write(b">long%d descr\n" % i + seq + b"\n")
 
-    golden = run_oracle_pipeline(
-        toy["refs"], toy["map"], str(reads_path), str(tmp_path / "oracle"),
-        complevel=1, do_rc=True,
-    )
-    idx = DeviceIndexArrays.from_ctr(str(golden["ctr"]))
+    want = tmp_path / "spec.txt"
+    search_file(HostIndex.from_ctr(str(spec["ctr"])), str(reads_path), str(want),
+                do_rc=True)
+    idx = DeviceIndexArrays.from_ctr(str(spec["ctr"]))
     pipe = SearchPipeline(idx, do_rc=True, batch_size=64)
     pipe.long_read_threshold = 10_000  # force the chunked path
     pipe.long_chunk = 8192
     out = tmp_path / "ours.txt"
     n = pipe.search_file(str(reads_path), str(out))
     assert n == 6
-    assert out.read_bytes() == golden["classifications"].read_bytes()
+    assert out.read_bytes() == want.read_bytes()
+    assert want.read_bytes().count(b"\n") == 6  # every long read classified

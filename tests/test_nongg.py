@@ -7,39 +7,39 @@ from utree_tpu.oracle import run_oracle_pipeline
 from utree_tpu.search_host import HostIndex, search_file_shallow
 
 
-def test_nongg_pipeline_identical(toy, tmp_path):
-    golden = run_oracle_pipeline(
-        toy["refs"], toy["map"], toy["reads"], str(tmp_path / "oracle"),
+def test_nongg_pipeline_identical(reference_sources, spec, tmp_path):
+    gold = run_oracle_pipeline(
+        spec["refs"], spec["map"], spec["reads"], str(tmp_path / "oracle"),
         complevel=1, gg=False,
     )
     cfg = UTreeConfig()
-    res = build_database(toy["refs"], toy["map"], cfg, do_gg=False)
+    res = build_database(spec["refs"], spec["map"], cfg, do_gg=False)
     ours_ubt = tmp_path / "ours.ubt"
     write_ubt(str(ours_ubt), res.words, res.ixs, res.labels.strings, cfg)
-    assert ours_ubt.read_bytes() == golden["ubt"].read_bytes()
+    assert ours_ubt.read_bytes() == gold["ubt"].read_bytes()
 
     ours_ctr = tmp_path / "ours.ctr"
     write_ctr_from_ubt(str(ours_ubt), str(ours_ctr), cfg)
-    assert ours_ctr.read_bytes() == golden["ctr"].read_bytes()
+    assert ours_ctr.read_bytes() == gold["ctr"].read_bytes()
 
     idx = HostIndex.from_ctr(str(ours_ctr), cfg)
     out = tmp_path / "cls.txt"
-    search_file_shallow(idx, toy["reads"], str(out), do_rc=False)
-    assert out.read_bytes() == golden["classifications"].read_bytes()
+    search_file_shallow(idx, spec["reads"], str(out), do_rc=False)
+    assert out.read_bytes() == gold["classifications"].read_bytes()
 
 
-def test_nongg_rc_identical(toy, tmp_path):
-    golden = run_oracle_pipeline(
-        toy["refs"], toy["map"], toy["reads"], str(tmp_path / "oracle_rc"),
+def test_nongg_rc_identical(reference_sources, spec, tmp_path):
+    gold = run_oracle_pipeline(
+        spec["refs"], spec["map"], spec["reads"], str(tmp_path / "oracle_rc"),
         complevel=1, gg=False, do_rc=True,
     )
-    idx = HostIndex.from_ctr(str(golden["ctr"]), UTreeConfig())
+    idx = HostIndex.from_ctr(str(gold["ctr"]), UTreeConfig())
     out = tmp_path / "cls_rc.txt"
-    search_file_shallow(idx, toy["reads"], str(out), do_rc=True)
-    assert out.read_bytes() == golden["classifications"].read_bytes()
+    search_file_shallow(idx, spec["reads"], str(out), do_rc=True)
+    assert out.read_bytes() == gold["classifications"].read_bytes()
 
 
-def test_shallow_fast_matches_literal_all_sparsities(toy, tmp_path):
+def test_shallow_fast_matches_literal_all_sparsities(spec, tmp_path):
     """scan_shallow_fast (batched lookups + divergence fallback) must equal
     the literal word-state-machine replay for every SPARSITY, including the
     skip-after-hit over-shift corruption paths and reads with Ns."""
@@ -51,10 +51,10 @@ def test_shallow_fast_matches_literal_all_sparsities(toy, tmp_path):
     from utree_tpu.search_host import scan_shallow_fast, scan_shallow_literal
 
     cfg = UTreeConfig()
-    res = build_database(toy["refs"], toy["map"], cfg, do_gg=False)
+    res = build_database(spec["refs"], spec["map"], cfg, do_gg=False)
     write_ubt(str(tmp_path / "s.ubt"), res.words, res.ixs, res.labels.strings, cfg)
     write_ctr_from_ubt(str(tmp_path / "s.ubt"), str(tmp_path / "s.ctr"), cfg)
-    reads = [s for _, s in iter_fasta_records(toy["reads"])][:120]
+    reads = [s for _, s in iter_fasta_records(spec["reads"])][:120]
     rng = np.random.default_rng(5)
     # splice Ns into some reads to exercise the invalid-char resets
     reads += [r[:40] + b"N" + r[41:] for r in reads[:20]]
@@ -72,7 +72,7 @@ def test_shallow_fast_matches_literal_all_sparsities(toy, tmp_path):
     assert checked_corrupt > 50  # the corruption path was actually exercised
 
 
-def test_native_shallow_matches_literal(toy, tmp_path):
+def test_native_shallow_matches_literal(spec, tmp_path):
     """native/shallow.cpp (the C word state machine, OpenMP batch) must equal
     scan_shallow_literal hit-for-hit on every read, sparsity, and strand."""
     import dataclasses
@@ -87,10 +87,10 @@ def test_native_shallow_matches_literal(toy, tmp_path):
     if shallow_lib() is None:
         pytest.skip("no native toolchain")
     cfg = UTreeConfig()
-    res = build_database(toy["refs"], toy["map"], cfg, do_gg=False)
+    res = build_database(spec["refs"], spec["map"], cfg, do_gg=False)
     write_ubt(str(tmp_path / "n.ubt"), res.words, res.ixs, res.labels.strings, cfg)
     write_ctr_from_ubt(str(tmp_path / "n.ubt"), str(tmp_path / "n.ctr"), cfg)
-    reads = [s for _, s in iter_fasta_records(toy["reads"])][:120]
+    reads = [s for _, s in iter_fasta_records(spec["reads"])][:120]
     reads += [r[:40] + b"N" + r[41:] for r in reads[:20]]
     reads += [b"", b"ACGT", b"N" * 40]  # shorter than a window / all-invalid
     for sparsity in (1, 2, 4, 8):

@@ -18,7 +18,7 @@ DEFS = ("PACKSIZE=16",)
 
 
 @pytest.fixture(scope="module")
-def toy16(tmp_path_factory):
+def toy16(reference_sources, tmp_path_factory):
     wd = tmp_path_factory.mktemp("toy16")
     records = make_toy_db(str(wd / "refs.fa"), str(wd / "tax.map"),
                           num_refs=6, ref_len=2000, seed=55)

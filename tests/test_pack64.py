@@ -1,23 +1,38 @@
-"""PACKSIZE=64 + IXTYPE=uint32_t configuration (BASELINE config 4) goldens."""
+"""PACKSIZE=64 + IXTYPE=uint32_t configuration (BASELINE config 4): device
+paths vs the host spec, and goldens vs the reference binaries."""
 
+import jax
 import pytest
 
 from utree_tpu.build import build_database
 from utree_tpu.config import UTreeConfig
 from utree_tpu.formats import write_ctr_from_ubt, write_ubt
+from utree_tpu.memory import table_budget
 from utree_tpu.oracle import run_oracle_pipeline
 from utree_tpu.search_host import HostIndex, search_file
-from utree_tpu.testdata import make_toy_db, make_toy_reads
+from utree_tpu.testdata import build_spec_db, make_toy_db, make_toy_reads
+
+# byte cap for the tables, from the device they are placed onto
+CAP = table_budget(jax.devices()[0])
 
 CFG64 = UTreeConfig(packsize=64, ixtype_bytes=4)
 DEFS = ("PACKSIZE=64", "IXTYPE=uint32_t")
 
 
 @pytest.fixture(scope="module")
-def toy64(tmp_path_factory):
+def spec64(tmp_path_factory):
+    """64-mer toy DB built in-repo, with the host spec's classifications."""
     wd = tmp_path_factory.mktemp("toy64")
     records = make_toy_db(str(wd / "refs.fa"), str(wd / "tax.map"), num_refs=8, ref_len=3000, seed=77)
     make_toy_reads(str(wd / "reads.fa"), records, num_reads=300, read_len=150, seed=78)
+    out = build_spec_db(wd / "refs.fa", wd / "tax.map", wd, CFG64, reads=wd / "reads.fa")
+    return {"dir": wd, **out}
+
+
+@pytest.fixture(scope="module")
+def toy64(reference_sources, spec64):
+    """The same inputs through the reference binaries built for k=64."""
+    wd = spec64["dir"]
     golden = run_oracle_pipeline(
         str(wd / "refs.fa"), str(wd / "tax.map"), str(wd / "reads.fa"),
         str(wd / "oracle"), complevel=1, extra_defs=DEFS, suffix="-64",
@@ -59,7 +74,7 @@ def test_search64_rc_identical(toy64, tmp_path):
     assert out.read_bytes() == golden["classifications"].read_bytes()
 
 
-def test_device_canonical64_equals_host_lookup(toy64):
+def test_device_canonical64_equals_host_lookup(spec64):
     """Canonical64 hash: per-position {ix(f), ix(rc f)} must equal the host
     probe replay on both strands, on the real built index."""
     import numpy as np
@@ -72,16 +87,16 @@ def test_device_canonical64_equals_host_lookup(toy64):
     from utree_tpu.lookup import lookup_kmers_canonical64
     from utree_tpu.search_host import HostIndex as HI, lookup_words
 
-    wd = toy64["dir"]
-    index = DeviceIndexArrays.from_ctr(str(toy64["golden"]["ctr"]), CFG64)
-    hidx = HI.from_ctr(str(toy64["golden"]["ctr"]), CFG64)
-    built = build_canonical_hash_index64(index)
+    wd = spec64["dir"]
+    index = DeviceIndexArrays.from_ctr(str(spec64["ctr"]), CFG64)
+    hidx = HI.from_ctr(str(spec64["ctr"]), CFG64)
+    built = build_canonical_hash_index64(index, t1_cap=CAP)
     tables = built.device_put()
 
     rng = np.random.default_rng(79)
     from utree_tpu.encode import W128, search_window_words
 
-    reads = toy64["dir"] / "reads.fa"
+    reads = spec64["dir"] / "reads.fa"
     seqs = [l for l in reads.read_bytes().splitlines() if l and not l.startswith(b">")]
     words_list = [search_window_words(s, 64, False) for s in seqs[:50]]
     words = np.concatenate([w for w in words_list if len(w)])
@@ -119,39 +134,34 @@ def test_device_canonical64_equals_host_lookup(toy64):
     assert np.array_equal(np.where(fwd < nl, fwd, -1), wf)
 
 
-def test_device_pipeline64_matches_oracle(toy64, tmp_path):
-    """Full 64-mer device pipeline vs the reference binary (fwd and RC)."""
+def test_device_pipeline64_matches_oracle(spec64, tmp_path):
+    """Full 64-mer device pipeline vs the host spec (forward)."""
     from utree_tpu.index import DeviceIndexArrays
     from utree_tpu.pipeline import SearchPipeline
 
-    wd = toy64["dir"]
-    idx = DeviceIndexArrays.from_ctr(str(toy64["golden"]["ctr"]), CFG64)
-    for rc, gold_key in ((False, "classifications"),):
+    wd = spec64["dir"]
+    idx = DeviceIndexArrays.from_ctr(str(spec64["ctr"]), CFG64)
+    for rc, gold_key in ((False, "cls"),):
         pipe = SearchPipeline(idx, do_rc=rc, batch_size=64)
         assert "c64_1" in pipe._table
         out = tmp_path / f"cls64_{rc}.txt"
         pipe.search_file(str(wd / "reads.fa"), str(out))
-        assert out.read_bytes() == toy64["golden"][gold_key].read_bytes()
+        assert out.read_bytes() == spec64[gold_key].read_bytes()
 
 
-def test_device_pipeline64_rc_matches_oracle(toy64, tmp_path):
+def test_device_pipeline64_rc_matches_oracle(spec64, tmp_path):
     from utree_tpu.index import DeviceIndexArrays
     from utree_tpu.pipeline import SearchPipeline
 
-    wd = toy64["dir"]
-    golden_rc = run_oracle_pipeline(
-        str(wd / "refs.fa"), str(wd / "tax.map"), str(wd / "reads.fa"),
-        str(wd / "oracle_rc"), complevel=1, extra_defs=DEFS, suffix="-64",
-        do_rc=True,
-    )
-    idx = DeviceIndexArrays.from_ctr(str(golden_rc["ctr"]), CFG64)
+    wd = spec64["dir"]
+    idx = DeviceIndexArrays.from_ctr(str(spec64["ctr"]), CFG64)
     pipe = SearchPipeline(idx, do_rc=True, batch_size=64)
     out = tmp_path / "cls64_rc.txt"
     pipe.search_file(str(wd / "reads.fa"), str(out))
-    assert out.read_bytes() == golden_rc["classifications"].read_bytes()
+    assert out.read_bytes() == spec64["cls_rc"].read_bytes()
 
 
-def test_canonical64_three_level_tier_exact(toy64):
+def test_canonical64_three_level_tier_exact(spec64):
     """The 64-mer 3-level ladder tier (narrow t2 + cached t3) answers
     identically to the default geometry on the real built index."""
     import numpy as np
@@ -162,8 +172,8 @@ def test_canonical64_three_level_tier_exact(toy64):
     from utree_tpu.lookup import lookup_kmers_canonical64
     from utree_tpu.encode import W128
 
-    index = DeviceIndexArrays.from_ctr(str(toy64["golden"]["ctr"]), CFG64)
-    base = build_canonical_hash_index64(index)
+    index = DeviceIndexArrays.from_ctr(str(spec64["ctr"]), CFG64)
+    base = build_canonical_hash_index64(index, t1_cap=CAP)
 
     # rebuild with a forced-overloaded 3-level geometry (t3 exercised)
     w_hi, w_lo, ix = _reference_hits64(index)
@@ -192,7 +202,8 @@ def test_canonical64_three_level_tier_exact(toy64):
     k3 = (ck_lo & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     lanes = [k0.view(np.int32), k1.view(np.int32), k2.view(np.int32),
              k3.view(np.int32), va.astype(np.int32), vb.astype(np.int32)]
-    forced = _place64(lanes, k0, k1, k2, k3, ng, 2, 16.0, 1, 1 << 26, slots3=8)
+    forced = _place64(lanes, k0, k1, k2, k3, ng, 2, 16.0, 1, 1 << 26, slots3=8,
+                     t1_cap=CAP)
     assert forced.t3.shape[0] > 8, "t3 tail not exercised"
 
     rng = np.random.default_rng(83)
@@ -218,7 +229,7 @@ def test_canonical64_three_level_tier_exact(toy64):
     assert np.array_equal(np.asarray(b0), np.asarray(b1))
 
 
-def test_device_displaced64_equals_host_lookup(toy64):
+def test_device_displaced64_equals_host_lookup(spec64):
     """Displaced64 (seed + one 48B row gather): per-position {ix(f), ix(rc)}
     must equal the host probe replay on both strands, on the real index."""
     import numpy as np
@@ -229,10 +240,10 @@ def test_device_displaced64_equals_host_lookup(toy64):
     from utree_tpu.lookup import lookup_kmers_displaced64
     from utree_tpu.search_host import HostIndex as HI, lookup_words
 
-    wd = toy64["dir"]
-    index = DeviceIndexArrays.from_ctr(str(toy64["golden"]["ctr"]), CFG64)
-    hidx = HI.from_ctr(str(toy64["golden"]["ctr"]), CFG64)
-    built = build_displaced_index64(index)
+    wd = spec64["dir"]
+    index = DeviceIndexArrays.from_ctr(str(spec64["ctr"]), CFG64)
+    hidx = HI.from_ctr(str(spec64["ctr"]), CFG64)
+    built = build_displaced_index64(index, t1_cap=CAP)
     tables = built.device_put()
 
     rng = np.random.default_rng(80)
@@ -271,7 +282,7 @@ def test_device_displaced64_equals_host_lookup(toy64):
     assert np.array_equal(np.where(fwd < nl, fwd, -1), wf)
 
 
-def test_displaced64_spill_tail_exact(toy64):
+def test_displaced64_spill_tail_exact(spec64):
     """Overloaded displaced64 placement (load ~1) pushes entries to the t3
     tail; the probe must still answer identically."""
     import numpy as np
@@ -282,14 +293,14 @@ def test_displaced64_spill_tail_exact(toy64):
     from utree_tpu.lookup import lookup_kmers_displaced64
     from utree_tpu.search_host import HostIndex as HI, lookup_words
 
-    index = DeviceIndexArrays.from_ctr(str(toy64["golden"]["ctr"]), CFG64)
-    hidx = HI.from_ctr(str(toy64["golden"]["ctr"]), CFG64)
+    index = DeviceIndexArrays.from_ctr(str(spec64["ctr"]), CFG64)
+    hidx = HI.from_ctr(str(spec64["ctr"]), CFG64)
     built = build_displaced_index64(index, load=0.98,
-                                    spill_budget=index.num_records)
+                                    spill_budget=index.num_records, t1_cap=CAP)
     assert built.t3.shape[0] > 8  # spill actually happened
     tables = built.device_put()
 
-    reads = toy64["dir"] / "reads.fa"
+    reads = spec64["dir"] / "reads.fa"
     seqs = [l for l in reads.read_bytes().splitlines() if l and not l.startswith(b">")]
     words = np.concatenate([w for w in (search_window_words(s, 64, False)
                                         for s in seqs[:50]) if len(w)])
@@ -307,18 +318,17 @@ def test_displaced64_spill_tail_exact(toy64):
                           np.where(ref_f < nl, ref_f, -1))
 
 
-def test_device_pipeline64_displaced_matches_oracle(toy64, tmp_path):
-    """Full 64-mer device pipeline on the displaced table vs the reference
-    binary."""
+def test_device_pipeline64_displaced_matches_oracle(spec64, tmp_path):
+    """Full 64-mer device pipeline on the displaced table vs the host spec."""
     from utree_tpu.index import DeviceIndexArrays
     from utree_tpu.pipeline import SearchPipeline
 
-    wd = toy64["dir"]
-    idx = DeviceIndexArrays.from_ctr(str(toy64["golden"]["ctr"]), CFG64)
+    wd = spec64["dir"]
+    idx = DeviceIndexArrays.from_ctr(str(spec64["ctr"]), CFG64)
     pipe = SearchPipeline(idx, do_rc=False, batch_size=64,
                           lookup_mode="displaced")
     assert "d64_1" in pipe._table
     assert pipe.table_kind == "displaced64"
     out = tmp_path / "cls64_disp.txt"
     pipe.search_file(str(wd / "reads.fa"), str(out))
-    assert out.read_bytes() == toy64["golden"]["classifications"].read_bytes()
+    assert out.read_bytes() == spec64["cls"].read_bytes()

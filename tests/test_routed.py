@@ -1,4 +1,4 @@
-"""Routed (all_to_all) sharded canonical search: identical to single-chip.
+"""Routed (all_to_all) sharded canonical search: identical to single-device.
 
 BASELINE config 5's exactness contract on the virtual 8-CPU mesh: routing
 only changes WHERE bucket rows are gathered, never the result.
@@ -13,6 +13,7 @@ from utree_tpu.config import UTreeConfig
 from utree_tpu.hash_index import build_canonical_hash_index
 from utree_tpu.index import DeviceIndexArrays
 from utree_tpu.lookup import pack_reads_host, search_step_hist_packed
+from utree_tpu.memory import table_budget
 from utree_tpu.parallel import make_mesh
 from utree_tpu.parallel.routed import (
     ShardedCanonicalIndex,
@@ -20,11 +21,14 @@ from utree_tpu.parallel.routed import (
     routed_fallback_step,
 )
 
+# byte cap for the tables, from the device they are placed onto
+CAP = table_budget(jax.devices()[0])
 
-def _setup(toy, batch=64, length=150, seed=21):
+
+def _setup(spec, batch=64, length=150, seed=21):
     cfg = UTreeConfig()
-    idx = DeviceIndexArrays.from_ctr(str(toy["golden"]["ctr"]), cfg)
-    canon = build_canonical_hash_index(idx)
+    idx = DeviceIndexArrays.from_ctr(str(spec["ctr"]), cfg)
+    canon = build_canonical_hash_index(idx, t1_cap=CAP)
     rng = np.random.default_rng(seed)
     reads = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=(batch, length),
                        p=[0.24, 0.24, 0.24, 0.24, 0.04]).astype(np.uint8)
@@ -44,8 +48,8 @@ def _single(cfg, idx, canon, packed, vbits, lens, do_rc, cap):
     return np.asarray(jax.jit(step)(table, packed, vbits, lens))
 
 
-def test_routed_identical_8way(toy):
-    cfg, idx, canon, packed, vbits, lens = _setup(toy)
+def test_routed_identical_8way(spec):
+    cfg, idx, canon, packed, vbits, lens = _setup(spec)
     mesh = make_mesh(data=1, table=8)
     sharded = ShardedCanonicalIndex.from_canonical(canon, 8)
     step = routed_canonical_search_step(
@@ -57,8 +61,8 @@ def test_routed_identical_8way(toy):
     assert np.array_equal(out[:, :-1], ref)
 
 
-def test_routed_identical_2x4_no_rc(toy):
-    cfg, idx, canon, packed, vbits, lens = _setup(toy, batch=32, seed=5)
+def test_routed_identical_2x4_no_rc(spec):
+    cfg, idx, canon, packed, vbits, lens = _setup(spec, batch=32, seed=5)
     mesh = make_mesh(data=2, table=4)
     sharded = ShardedCanonicalIndex.from_canonical(canon, 4)
     step = routed_canonical_search_step(
@@ -80,7 +84,7 @@ def test_routed_wide_labels_identical():
     cfg = UTreeConfig(ixtype_bytes=4)
     idx = DeviceIndexArrays.from_build(
         words, ixs, [b"l%d" % i for i in range(nlab)], cfg)
-    canon = build_canonical_hash_index(idx)
+    canon = build_canonical_hash_index(idx, t1_cap=CAP)
     assert canon.t1.shape[1] == canon.slots * 4  # actually wide
 
     # reads with a stored word spliced in so routed probes really hit
@@ -114,10 +118,10 @@ def test_routed_wide_labels_identical():
     assert np.array_equal(got, ref)
 
 
-def test_routed_overflow_flag_and_fallback(toy):
+def test_routed_overflow_flag_and_fallback(spec):
     """A tiny capacity factor forces overflow; the flag must fire and the
-    fallback must produce the exact single-chip result."""
-    cfg, idx, canon, packed, vbits, lens = _setup(toy, seed=77)
+    fallback must produce the exact single-device result."""
+    cfg, idx, canon, packed, vbits, lens = _setup(spec, seed=77)
     mesh = make_mesh(data=1, table=8)
     sharded = ShardedCanonicalIndex.from_canonical(canon, 8)
     step = routed_canonical_search_step(
@@ -140,20 +144,20 @@ def test_routed_overflow_flag_and_fallback(toy):
 def _single_displaced(cfg, idx, packed, vbits, lens, do_rc, cap):
     from utree_tpu.hash_index import build_displaced_index
 
-    table = build_displaced_index(idx).device_put()
+    table = build_displaced_index(idx, t1_cap=CAP).device_put()
     step = functools.partial(
         search_step_hist_packed, k=32, do_rc=do_rc, probe_iters=idx.probe_iters,
         bad_ix=min(cfg.bad_ix, 0x7FFFFFFF), num_labels=idx.num_labels, cap=cap)
     return np.asarray(jax.jit(step)(table, packed, vbits, lens))
 
 
-def test_routed_displaced_identical_8way(toy):
+def test_routed_displaced_identical_8way(spec):
     from utree_tpu.parallel.routed import (ShardedDisplacedIndex,
                                            routed_displaced_search_step)
 
-    cfg, idx, _, packed, vbits, lens = _setup(toy)
+    cfg, idx, _, packed, vbits, lens = _setup(spec)
     mesh = make_mesh(data=1, table=8)
-    sharded = ShardedDisplacedIndex.build(idx, 8)
+    sharded = ShardedDisplacedIndex.build(idx, 8, t1_cap=CAP)
     step = routed_displaced_search_step(
         mesh, sharded, do_rc=True, num_labels=idx.num_labels, cap=8,
         bad_ix=cfg.bad_ix)
@@ -163,14 +167,14 @@ def test_routed_displaced_identical_8way(toy):
     assert np.array_equal(out[:, :-1], ref)
 
 
-def test_routed_displaced_2x4_fallback_and_overflow(toy):
+def test_routed_displaced_2x4_fallback_and_overflow(spec):
     from utree_tpu.parallel.routed import (ShardedDisplacedIndex,
                                            routed_displaced_fallback_step,
                                            routed_displaced_search_step)
 
-    cfg, idx, _, packed, vbits, lens = _setup(toy, batch=32, seed=9)
+    cfg, idx, _, packed, vbits, lens = _setup(spec, batch=32, seed=9)
     mesh = make_mesh(data=2, table=4)
-    sharded = ShardedDisplacedIndex.build(idx, 4)
+    sharded = ShardedDisplacedIndex.build(idx, 4, t1_cap=CAP)
     ref = _single_displaced(cfg, idx, packed, vbits, lens, False, 16)
 
     fb = routed_displaced_fallback_step(
@@ -212,7 +216,7 @@ def test_routed_displaced_wide_labels():
 
     ref = _single_displaced(cfg, idx, packed, vbits, lens, True, 8)
     mesh = make_mesh(data=1, table=8)
-    sharded = ShardedDisplacedIndex.build(idx, 8)
+    sharded = ShardedDisplacedIndex.build(idx, 8, t1_cap=CAP)
     assert sharded.wide
     step = routed_displaced_search_step(
         mesh, sharded, do_rc=True, num_labels=idx.num_labels, cap=8,

@@ -12,26 +12,26 @@ from utree_tpu.index import DeviceIndexArrays
 from utree_tpu.pipeline import SearchPipeline
 
 
-def _pipe(toy, **kw):
-    idx = DeviceIndexArrays.from_ctr(str(toy["golden_rc"]["ctr"]))
+def _pipe(spec, **kw):
+    idx = DeviceIndexArrays.from_ctr(str(spec["ctr"]))
     return SearchPipeline(idx, do_rc=True, **kw)
 
 
-def test_tiny_chunks_identical(toy, tmp_path):
-    ref = _pipe(toy, batch_size=128)
+def test_tiny_chunks_identical(spec, tmp_path):
+    ref = _pipe(spec, batch_size=128)
     a = tmp_path / "whole.txt"
-    n1 = ref.search_file(toy["reads"], str(a))
+    n1 = ref.search_file(spec["reads"], str(a))
 
-    pipe = _pipe(toy, batch_size=128)
+    pipe = _pipe(spec, batch_size=128)
     pipe.stream_chunk_bytes = 1  # floor is 64KiB; still forces many pieces
     b = tmp_path / "chunked.txt"
-    n2 = pipe.search_file(toy["reads"], str(b))
+    n2 = pipe.search_file(spec["reads"], str(b))
     assert n1 == n2 == 1000
     assert a.read_bytes() == b.read_bytes()
-    assert a.read_bytes() == toy["golden_rc"]["classifications"].read_bytes()
+    assert a.read_bytes() == spec["cls_rc"].read_bytes()
 
 
-def test_record_larger_than_chunk(toy, tmp_path):
+def test_record_larger_than_chunk(spec, tmp_path):
     """A single record bigger than the chunk grows the tail until complete."""
     rng = np.random.default_rng(4)
     seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=300_000).tobytes()
@@ -42,11 +42,11 @@ def test_record_larger_than_chunk(toy, tmp_path):
             s = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=120).tobytes()
             f.write(b">r%d\n" % i + s + b"\n")
 
-    ref = _pipe(toy, batch_size=16)
+    ref = _pipe(spec, batch_size=16)
     a = tmp_path / "whole.txt"
     ref.search_file(str(reads), str(a))
 
-    pipe = _pipe(toy, batch_size=16)
+    pipe = _pipe(spec, batch_size=16)
     pipe.stream_chunk_bytes = 1  # 64KiB floor < 300KB record
     b = tmp_path / "chunked.txt"
     n = pipe.search_file(str(reads), str(b))
@@ -54,17 +54,17 @@ def test_record_larger_than_chunk(toy, tmp_path):
     assert a.read_bytes() == b.read_bytes()
 
 
-def test_resume_across_pieces(toy, tmp_path):
+def test_resume_across_pieces(spec, tmp_path):
     """Interrupt mid-file, resume with chunked ingestion: bytes identical."""
     from utree_tpu.utils.checkpoint import SearchCheckpoint
 
-    full = _pipe(toy, batch_size=64)
+    full = _pipe(spec, batch_size=64)
     a = tmp_path / "full.txt"
-    full.search_file(toy["reads"], str(a))
+    full.search_file(spec["reads"], str(a))
 
     out = tmp_path / "resumed.txt"
     # simulate an interrupted run: process ~1/3, keep the sidecar
-    pipe = _pipe(toy, batch_size=64)
+    pipe = _pipe(spec, batch_size=64)
     pipe.stream_chunk_bytes = 1
 
     class Boom(RuntimeError):
@@ -83,21 +83,21 @@ def test_resume_across_pieces(toy, tmp_path):
     SearchCheckpoint.commit = bomb
     try:
         try:
-            pipe.search_file(toy["reads"], str(out))
+            pipe.search_file(spec["reads"], str(out))
             raise AssertionError("expected interruption")
         except Boom:
             pass
     finally:
         SearchCheckpoint.commit = orig
 
-    pipe2 = _pipe(toy, batch_size=64)
+    pipe2 = _pipe(spec, batch_size=64)
     pipe2.stream_chunk_bytes = 1
-    n = pipe2.search_file(toy["reads"], str(out), resume=True)
+    n = pipe2.search_file(spec["reads"], str(out), resume=True)
     assert n == 1000
     assert out.read_bytes() == a.read_bytes()
 
 
-def test_gz_input_native_driver_identical(toy, tmp_path):
+def test_gz_input_native_driver_identical(spec, tmp_path):
     """.gz reads stream through the native driver and produce the same
     bytes as the plain file (the reference utree reads plain FASTA only;
     gz is an ingestion extension matching xtree's gzread chunking)."""
@@ -108,13 +108,13 @@ def test_gz_input_native_driver_identical(toy, tmp_path):
     from utree_tpu.pipeline import SearchPipeline
 
     cfg = UTreeConfig(complevel=1)
-    idx = DeviceIndexArrays.from_ctr(str(toy["golden"]["ctr"]), cfg)
+    idx = DeviceIndexArrays.from_ctr(str(spec["ctr"]), cfg)
     gz = tmp_path / "reads.fa.gz"
     with gzip.open(gz, "wb") as f:
-        f.write(open(toy["reads"], "rb").read())
+        f.write(open(spec["reads"], "rb").read())
     pipe = SearchPipeline(idx, do_rc=True, batch_size=128)
     pipe.stream_chunk_bytes = 1 << 16
-    pipe.search_file(toy["reads"], str(tmp_path / "plain.txt"))
+    pipe.search_file(spec["reads"], str(tmp_path / "plain.txt"))
     pipe.search_file(str(gz), str(tmp_path / "gz.txt"))
     plain = (tmp_path / "plain.txt").read_bytes()
     assert plain == (tmp_path / "gz.txt").read_bytes()

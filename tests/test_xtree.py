@@ -1,4 +1,5 @@
-"""XTree capability layer golden tests vs the reference xtree binary."""
+"""XTree capability layer: device-vs-host equality on the in-repo build, and
+golden tests vs the reference xtree binary where its sources exist."""
 
 import pytest
 
@@ -10,6 +11,7 @@ from utree_tpu.xtree.build import build_xtree_db, read_xtr, write_xtr
 
 @pytest.fixture(scope="module")
 def xtoy(tmp_path_factory):
+    """Toy refs/reads with a 3-column map, and spec.xtr built in-repo."""
     wd = tmp_path_factory.mktemp("xtoy")
     recs = make_toy_db(str(wd / "refs.fa"), str(wd / "tax.map"), num_refs=8, ref_len=3000, seed=21)
     make_toy_reads(str(wd / "reads.fa"), recs, num_reads=300, read_len=120, seed=31)
@@ -17,21 +19,30 @@ def xtoy(tmp_path_factory):
     with open(wd / "tax3.map", "wb") as f:
         for i, (k, v) in enumerate(rows):
             f.write(k + b"\t" + v + b"\tfunc__" + str(i % 3).encode() + b"\n")
-    run_xtree_oracle([
-        "BUILD", "--seqs", str(wd / "refs.fa"), "--map", str(wd / "tax3.map"),
-        "--db-out", str(wd / "gold.xtr"), "--k", "29", "--comp", "0",
-    ])
+    write_xtr(build_xtree_db(str(wd / "refs.fa"), str(wd / "tax3.map"), k=29, comp=0),
+              str(wd / "spec.xtr"))
     return wd
 
 
-def test_xtr_build_bytes_identical(xtoy, tmp_path):
+@pytest.fixture(scope="module")
+def xgold(reference_sources, xtoy):
+    """gold.xtr: the same inputs through the reference BUILD."""
+    run_xtree_oracle([
+        "BUILD", "--seqs", str(xtoy / "refs.fa"), "--map", str(xtoy / "tax3.map"),
+        "--db-out", str(xtoy / "gold.xtr"), "--k", "29", "--comp", "0",
+    ])
+    return xtoy
+
+
+def test_xtr_build_bytes_identical(xgold, tmp_path):
+    xtoy = xgold
     db = build_xtree_db(str(xtoy / "refs.fa"), str(xtoy / "tax3.map"), k=29, comp=0)
     ours = tmp_path / "ours.xtr"
     write_xtr(db, str(ours))
     assert ours.read_bytes() == (xtoy / "gold.xtr").read_bytes()
 
 
-def test_xtr_build_comp2_identical(xtoy, tmp_path):
+def test_xtr_build_comp2_identical(reference_sources, xtoy, tmp_path):
     run_xtree_oracle([
         "BUILD", "--seqs", str(xtoy / "refs.fa"), "--map", str(xtoy / "tax3.map"),
         "--db-out", str(tmp_path / "gold2.xtr"), "--k", "29", "--comp", "2",
@@ -41,7 +52,8 @@ def test_xtr_build_comp2_identical(xtoy, tmp_path):
     assert (tmp_path / "ours2.xtr").read_bytes() == (tmp_path / "gold2.xtr").read_bytes()
 
 
-def test_align_outputs_identical(xtoy, tmp_path):
+def test_align_outputs_identical(xgold, tmp_path):
+    xtoy = xgold
     run_xtree_oracle([
         "ALIGN", "--db", str(xtoy / "gold.xtr"), "--seqs", str(xtoy / "reads.fa"),
         "--perq-out", str(tmp_path / "g_perq.tsv"), "--ref-out", str(tmp_path / "g_ref.tsv"),
@@ -56,7 +68,8 @@ def test_align_outputs_identical(xtoy, tmp_path):
         assert (tmp_path / f"o_{name}.tsv").read_bytes() == (tmp_path / f"g_{name}.tsv").read_bytes(), name
 
 
-def test_align_redistribute_identical(xtoy, tmp_path):
+def test_align_redistribute_identical(xgold, tmp_path):
+    xtoy = xgold
     run_xtree_oracle([
         "ALIGN", "--db", str(xtoy / "gold.xtr"), "--seqs", str(xtoy / "reads.fa"),
         "--perq-out", str(tmp_path / "g_perq.tsv"), "--ref-out", str(tmp_path / "g_ref.tsv"),
@@ -75,7 +88,7 @@ def test_orthog_writer_works(xtoy, tmp_path):
     """The reference v0.92i orthog writer segfaults unconditionally (OOB read
     at xtree.c:1508 on singleton hash buckets) — no golden comparison is
     possible.  We implement the documented intent: (H1,H2) cross-tab counts."""
-    al = XtreeAligner(read_xtr(str(xtoy / "gold.xtr")))
+    al = XtreeAligner(read_xtr(str(xtoy / "spec.xtr")))
     al.align_file(str(xtoy / "reads.fa"), AlignOptions(
         tax_out=str(tmp_path / "o_tax.tsv"), orthog_out=str(tmp_path / "o_orthog.tsv"),
     ))
@@ -95,7 +108,7 @@ def test_fastq_gz_queries(xtoy, tmp_path):
         for i in range(0, len(reads), 2):
             name, seq = reads[i][1:], reads[i + 1]
             f.write(b"@" + name + b"\n" + seq + b"\n+\n" + b"I" * len(seq) + b"\n")
-    al = XtreeAligner(read_xtr(str(xtoy / "gold.xtr")))
+    al = XtreeAligner(read_xtr(str(xtoy / "spec.xtr")))
     al.align_file(str(tmp_path / "reads.fq.gz"), AlignOptions(perq_out=str(tmp_path / "fq_perq.tsv")))
     al.align_file(str(xtoy / "reads.fa"), AlignOptions(perq_out=str(tmp_path / "fa_perq.tsv")))
     assert (tmp_path / "fq_perq.tsv").read_bytes() == (tmp_path / "fa_perq.tsv").read_bytes()
@@ -142,7 +155,7 @@ def test_batch_engine_matches_scalar(tmp_path, conf, full_lca, redist):
         assert b == s, name
 
 
-def test_onepast_hardstop_vs_oracle(tmp_path):
+def test_onepast_hardstop_vs_oracle(reference_sources, tmp_path):
     """LBS_k can 'hit' one pod PAST the probed bin (the C checks KP[L] at
     L == bin size); the vote expansion then clamps at the probed bin's
     hardstop (xtree.c:1108), so such entries count toward tix but tally no
@@ -179,7 +192,7 @@ def test_device_hits_equal_host(xtoy):
 
     from utree_tpu.xtree.io import iter_queries
 
-    db = read_xtr(str(xtoy / "gold.xtr"))
+    db = read_xtr(str(xtoy / "spec.xtr"))
     host = XtreeAligner(db)
     dev = XtreeAligner(db, use_device=True)
     heads, seqs = [], []
@@ -196,22 +209,21 @@ def test_device_hits_equal_host(xtoy):
 
 
 def test_device_align_outputs_identical(xtoy, tmp_path):
-    """Full ALIGN with the device front end == the reference binary."""
-    run_xtree_oracle([
-        "ALIGN", "--db", str(xtoy / "gold.xtr"), "--seqs", str(xtoy / "reads.fa"),
-        "--perq-out", str(tmp_path / "g_perq.tsv"), "--ref-out", str(tmp_path / "g_ref.tsv"),
-        "--tax-out", str(tmp_path / "g_tax.tsv"), "--cov-out", str(tmp_path / "g_cov.tsv"),
-    ])
-    al = XtreeAligner(read_xtr(str(xtoy / "gold.xtr")), use_device=True)
-    al.align_file(str(xtoy / "reads.fa"), AlignOptions(
-        perq_out=str(tmp_path / "o_perq.tsv"), ref_out=str(tmp_path / "o_ref.tsv"),
-        tax_out=str(tmp_path / "o_tax.tsv"), cov_out=str(tmp_path / "o_cov.tsv"),
-    ))
+    """Full ALIGN with the device front end == the host engine."""
+    db = read_xtr(str(xtoy / "spec.xtr"))
+    for tag, use_device in (("g", False), ("o", True)):
+        XtreeAligner(db, use_device=use_device).align_file(
+            str(xtoy / "reads.fa"), AlignOptions(
+                perq_out=str(tmp_path / f"{tag}_perq.tsv"),
+                ref_out=str(tmp_path / f"{tag}_ref.tsv"),
+                tax_out=str(tmp_path / f"{tag}_tax.tsv"),
+                cov_out=str(tmp_path / f"{tag}_cov.tsv"),
+            ))
     for name in ["perq", "ref", "tax", "cov"]:
         assert (tmp_path / f"o_{name}.tsv").read_bytes() == (tmp_path / f"g_{name}.tsv").read_bytes(), name
 
 
-def test_build_log_identical(xtoy, tmp_path):
+def test_build_log_identical(reference_sources, xtoy, tmp_path):
     """X11 golden: per-ref TotalKmers/UniqKmers build log byte-identical to
     the reference's --log-out tally (xtree.c:476-529), both comp levels."""
     from utree_tpu.xtree.build import write_build_log

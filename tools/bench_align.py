@@ -25,7 +25,7 @@ def main():
     ap.add_argument("--read-len", type=int, default=150)
     ap.add_argument("--scalar", action="store_true", help="also time the scalar replay")
     ap.add_argument("--device", action="store_true",
-                    help="use the TPU displaced-hash k-mer front end")
+                    help="use the device displaced-hash k-mer front end")
     ap.add_argument("--ref", action="store_true",
                     help="also time the compiled reference xtree ALIGN "
                          "(OMP_NUM_THREADS=1) on the same DB/reads and "

@@ -1,4 +1,4 @@
-"""Sort-based database build (the TPU-era replacement for the BST build).
+"""Sort-based database build (the vectorized replacement for the BST build).
 
 The reference build (UT_parseSampFastaExternOSFA + UT_addWordIxRF,
 itree.c:501-635, 457-473) streams one k-mer at a time into 2^24 binary search

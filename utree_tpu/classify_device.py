@@ -50,16 +50,16 @@ class AufbauTables:
 
     BIG = np.int32(0x3FFFFFFF)
 
-    def device_put(self):
+    def device_put(self, sharding=None):
         import jax
 
         return {
-            "rank": jax.device_put(self.rank_of_label),
-            "st": jax.device_put(self.st_tab),
-            "slen": jax.device_put(self.slen),
-            "semi": jax.device_put(self.semi_mask),
-            "und": jax.device_put(self.und_mask),
-            "spos": jax.device_put(self.semi_pos),
+            "rank": jax.device_put(self.rank_of_label, sharding),
+            "st": jax.device_put(self.st_tab, sharding),
+            "slen": jax.device_put(self.slen, sharding),
+            "semi": jax.device_put(self.semi_mask, sharding),
+            "und": jax.device_put(self.und_mask, sharding),
+            "spos": jax.device_put(self.semi_pos, sharding),
         }
 
 

@@ -46,6 +46,7 @@ def _cmd_search(a):
     from utree_tpu.utils.trace import PhaseTimer, Tracer
 
     tm = PhaseTimer(quiet=True) if a.trace else None
+    pipe = None
     cfg = sniff_config(a.db)
     if cfg.packsize not in (32, 64) and not a.host and not a.rank_specific:
         # the device window extractor implements the 32/64-mer geometries;
@@ -88,7 +89,7 @@ def _cmd_search(a):
         if a.num_hosts > 1:
             init_distributed(a.coordinator, a.num_hosts, a.host_id)
         # --num-hosts 1: run the same multihost driver single-process without
-        # jax.distributed (which needs a coordinator outside TPU pod envs)
+        # jax.distributed (which needs a coordinator)
         idx = DeviceIndexArrays.from_ctr(a.db, cfg)
         pipe = SearchPipeline(idx, do_rc=a.rc, batch_size=a.batch,
                               support_ranges=a.support_ranges,
@@ -118,12 +119,16 @@ def _cmd_search(a):
             with Tracer(a.profile_dir):
                 n = pipe.search_file(a.reads, a.out, resume=a.resume)
     if tm:
+        if pipe is not None:
+            print("search path: " + " ".join(
+                f"{k}={v}" for k, v in pipe.describe().items()))
         for name, dt in tm.phases.items():
             print(f"{name} [{dt:.3f}s]")
         rps = tm.rate("reads", "search")
         if rps:
-            print(f"throughput: {rps:,.0f} reads/s/chip")
+            print(f"throughput: {rps:,.0f} reads/s")
     print(f"Searched {n} queries -> {a.out}")
+    return pipe
 
 
 def _cmd_xtree_build(a):
@@ -199,7 +204,8 @@ def main(argv=None):
     s.add_argument("--coordinator", default=None,
                    help="host:port of process 0 (jax.distributed)")
     s.add_argument("--trace", action="store_true",
-                   help="print per-phase timings + reads/s/chip (the "
+                   help="print the resolved search path, per-phase timings "
+                   "and reads/s (the "
                    "reference's omp_get_wtime narration, xtree.c:289-473)")
     s.add_argument("--profile-dir", dest="profile_dir", default=None,
                    help="capture a jax.profiler device trace to this dir")
@@ -220,7 +226,7 @@ def main(argv=None):
     xa.add_argument("--cov-out", dest="cov_out")
     xa.add_argument("--orthog-out", dest="orthog_out")
     xa.add_argument("--device", action="store_true",
-                    help="TPU displaced-hash k-mer probe (host voting): "
+                    help="device displaced-hash k-mer probe (host voting): "
                          "identical outputs, device-speed matching")
     xa.add_argument("--redistribute", action="store_true")
     xa.add_argument("--fast-redistribute", dest="fast_redistribute", action="store_true")
@@ -228,7 +234,7 @@ def main(argv=None):
     xa.set_defaults(fn=_cmd_xtree_align)
 
     a = p.parse_args(argv)
-    a.fn(a)
+    return a.fn(a)
 
 
 if __name__ == "__main__":

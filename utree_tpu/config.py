@@ -1,4 +1,4 @@
-"""Configuration for the UTree-TPU pipeline.
+"""Configuration for the utree_tpu pipeline.
 
 The reference configures itree.c entirely through compile-time -D defines
 (itree.c:18-26, 35-70; README.md:85-108).  Here the same knobs are fields of

@@ -13,8 +13,8 @@ Reference semantics reimplemented vectorized:
 - word packing: MSB-first 2 bits/base (itree.c:617-621).
 
 Host functions use NumPy uint64 words.  Device functions keep words split as
-(prefix24, suffix_hi8, suffix_lo32) int32 lanes, because TPUs have no fast
-64-bit integer path — this matches the .ctr on-disk split (itree.c:689-695).
+(prefix24, suffix_hi8, suffix_lo32) int32 lanes, which matches the .ctr
+on-disk split (itree.c:689-695).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Exact bucketized hash index — the TPU-fast lookup path.
+"""Exact bucketized hash indexes: the device lookup tables.
 
-XLA's TPU gather costs ~7ns/row regardless of row width (measured: 15.8M
-single gathers 108ms, 8-wide row gathers 66ms), so the binary-search probe
-loop (~10 dependent gathers per k-mer) is gather-throughput-bound.  This
-index replaces it with at most TWO contiguous row gathers per lookup:
+The reference lookup is a binary search over sorted suffixes (xtSuffixBS,
+itree.c:699-730): about ten dependent gathers per k-mer.  These tables
+replace it with at most two contiguous row gathers per lookup, whose
+indices derive from the key alone:
 
   bucket  = mix64(word) mod B       (computed in int32 lanes on device)
   slots   = table[bucket]           one (S, 3)-row gather: key_lo, key_hi, ix
@@ -18,6 +18,10 @@ distinct suffix in it, the entry's value is what xtSuffixBS would return; a
 suffix the probe cannot find gets no entry.  Bins whose probe range equals
 their true record extent (all but a handful) shortcut to their records
 directly; anomalous bins replay the literal probe per suffix.
+
+MEMORY: the builders cap every table array (t1 is the largest) at `t1_cap`
+bytes, which the caller derives from the device it places the table onto
+(utree_tpu.memory.table_budget).
 """
 
 from __future__ import annotations
@@ -34,24 +38,33 @@ _M2 = np.uint32(0x85EBCA6B)
 _M3 = np.uint32(0xC2B2AE35)
 
 # canonical-table geometry, shared by builder (here) and device probe
-# (lookup.lookup_kmers_canonical).  TPU gather cost is quantized by 32-byte
-# sectors (measured, v5e: rows <= 8 int32 cols gather at 17.7ns, 9-16 cols at
-# 25.3ns, independent of table size) — so t1 rows are 2 slots = 24B, and the
-# builder doubles t1 until the Poisson tail past 2 slots fits the tiny-spill
-# budget below.
+# (lookup.lookup_kmers_canonical).  t1 rows are 2 slots = 24B (one 32-byte
+# memory sector per probe), and the builder doubles t1 until the Poisson tail
+# past 2 slots fits the tiny-spill budget below.  The row width and the
+# budgets are tuning choices, open to a sweep on the target device.
 CANON_SLOTS = 2
 CANON_LOAD = 0.3  # per-slot; bucket lambda = slots * load
-# t2 rows are WIDE (16 slots): the table is cache-resident so row width is
-# nearly free, and a 16-slot bucket at lambda <= ~7 has a vanishing overflow
-# tail — one single probe, no growth spiral
+# t2 rows are WIDE (16 slots): the table is kept small enough to stay
+# cache-resident, and a 16-slot bucket at lambda <= ~7 has a vanishing
+# overflow tail — one single probe, no growth spiral
 CANON_SLOTS2 = 16
 # Spill must stay TINY: t2's own fit-growth loop multiplies its size by the
-# Poisson tail, and a t2 past the on-chip cache adds a full-price second HBM
-# gather to every lookup.  1MB of spill entries keeps t2 well under ~4MB
-# after growth.  t1 is capped at 8GB (v5e HBM is 16GB); builds that cannot
-# satisfy both raise, and the pipeline falls back to the bsearch path.
+# Poisson tail, and a t2 that outgrows the cache makes the second probe of
+# every lookup a device-memory gather.  1MB of spill entries keeps t2 well
+# under ~4MB after growth.  Builds that cannot satisfy both this and the t1
+# cap move down the geometry ladder, or raise.
 _CANON_T2_BUDGET = (1 << 20) + (1 << 18)  # 1.25MB of entries -> t2 <= ~1.5MB
-_CANON_T1_CAP = 6 << 30  # v5e HBM is 16GB; measured step workspace + t2 need ~8GB headroom at batch 65536
+
+
+def _over_cap(nbytes: int, t1_cap: int) -> bool:
+    return nbytes > t1_cap
+
+
+def _alloc(rows: int, cols: int, t1_cap: int, what: str) -> np.ndarray:
+    """A zeroed int32 table array; no array of a table may exceed the cap."""
+    if _over_cap(rows * cols * 4, t1_cap):
+        raise ValueError(f"{what} would exceed the device memory budget")
+    return np.zeros((rows, cols), np.int32)
 
 
 def _mix_np(pre: np.ndarray, hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
@@ -227,8 +240,8 @@ class CanonicalHashArrays:
     slot, which is unambiguous because a value-less entry is never inserted).
     Values are derived from the reference probe's own results, quirks
     included (see _reference_hits).  t1 rows are `slots` entries; overflow
-    lives in t2 (differently mixed), sized to stay small enough for the
-    on-chip gather fast path."""
+    lives in t2 (differently mixed), sized to stay small enough to remain
+    cache-resident."""
 
     t1: np.ndarray  # int32 (B1, slots*3)
     t2: np.ndarray  # int32 (B2, slots2*3)
@@ -251,26 +264,24 @@ def build_canonical_hash_index(
     slots: int | None = None,
     load: float | None = None,
     slots2: int | None = None,
+    *,
+    t1_cap: int,
 ) -> CanonicalHashArrays:
     """Build the canonical table, walking a geometry LADDER so that big DBs
     degrade gracefully instead of losing the hash path entirely:
 
-      tier A: 2 slots (24B = 1-sector rows, ~17.7ns gather), tiny cached t2
-              — covers up to ~80M entries within the t1 cap;
+      tier A: 2 slots (24B rows), tiny cached t2;
       tier B: THREE-level chain with narrow rows everywhere — t1 4 slots
-              (48B = 2 sectors, measured 22.1ns), t2 2 slots (24B = 1
-              sector, 14.9ns) absorbing the spill, t3 tiny+cached (16
-              slots) absorbing t2's own Poisson tail.  All three gather
-              indices derive from the key alone (no dependent gathers, so
-              they pipeline); ~41ns/probe at the real-L2 150M-entry scale.
-              (Measured dead ends, kept out: 5-slot 64B rows lose nothing
-              on the gather but force 192B t2 rows (~55ns); per-bucket
-              spill FLAGS make the t2 index depend on the t1 row and
-              serialize the chain — 943ms vs 497ms per batch.)
-      tier C: 4 slots + wide-rowed HBM t2 (every probe pays a 96B second
-              gather; the safety net when t2/t3 budgets cannot hold).
+              (48B), t2 2 slots (24B) absorbing the spill, t3 tiny+cached
+              (16 slots) absorbing t2's own Poisson tail.  All three gather
+              indices derive from the key alone, so the gathers are
+              independent and can overlap (a per-bucket spill FLAG would make
+              the t2 index depend on the t1 row and serialize the chain);
+      tier C: 4 slots + wide-rowed device-memory t2 (every probe pays a 96B
+              second gather; the safety net when t2/t3 budgets cannot hold).
 
-    Passing slots/load/slots2 pins a single geometry (tests)."""
+    t1_cap bounds each array's bytes.  Passing
+    slots/load/slots2 pins a single geometry (tests)."""
     key_lo, key_hi, vals, cpre, chi, clo, ng = _canonical_groups(index)
     if slots is not None:
         tiers = [(slots, load or CANON_LOAD, slots2 or CANON_SLOTS2, 1 << 27, 0)]
@@ -284,7 +295,8 @@ def build_canonical_hash_index(
     for s_, load_, s2_, budget_, s3_ in tiers:
         try:
             return _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
-                                    s_, load_, s2_, budget_, slots3=s3_)
+                                    s_, load_, s2_, budget_, slots3=s3_,
+                                    t1_cap=t1_cap)
         except (ValueError, RuntimeError) as e:
             err = e
     raise ValueError(f"canonical table does not fit any geometry tier: {err}")
@@ -380,8 +392,8 @@ def _fill(table: np.ndarray, sb, pos, src, key_lo, key_hi, vals2d):
         table[sb, pos * cps + 2 + v] = vals2d[src, v]
 
 
-# 3-level tier limits: t2 stays narrow-rowed and HBM-resident, t3 absorbs
-# t2's Poisson tail and must stay on-chip-cache-sized
+# 3-level tier limits: t2 stays narrow-rowed in device memory, t3 absorbs
+# t2's Poisson tail and is kept small enough to stay cache-resident
 _T3_ENTRY_BUDGET = 120_000
 _T2_BYTE_CAP = 1 << 30
 _T3_BYTE_CAP = 8 << 20
@@ -389,11 +401,12 @@ _T3_BYTE_CAP = 8 << 20
 
 def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
                      slots, load, slots2, t2_budget_entries,
-                     slots3: int = 0) -> CanonicalHashArrays:
+                     slots3: int = 0, *,
+                     t1_cap: int) -> CanonicalHashArrays:
     cps = 2 + vals.shape[1]  # cols per slot (3 narrow, 4 wide)
     row_bytes = slots * cps * 4
     b1 = max(8, 1 << int(np.ceil(np.log2(max(1, ng / (slots * load))))))
-    while b1 * row_bytes > _CANON_T1_CAP:
+    while b1 > 8 and _over_cap(b1 * row_bytes, t1_cap):
         b1 //= 2
     # bucket hash folds TWO independent 32-bit mixes: a single 32-bit hash
     # has ~n^2/2^33 birthday-colliding pairs (46K at 20M keys) that no table
@@ -409,8 +422,9 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
         n_spill = int((~fits).sum())
         if n_spill <= t2_budget_entries:
             break
-        if b1 * row_bytes * 2 > _CANON_T1_CAP:
-            raise ValueError("canonical table would exceed the HBM budget")
+        if _over_cap(b1 * row_bytes * 2, t1_cap):
+            raise ValueError(
+                "canonical table would exceed the device memory budget")
         b1 *= 2
     t1 = np.zeros((b1, slots * cps), np.int32)
     _fill(t1, sb[fits], pos_in[fits], sb_order[fits], key_lo, key_hi, vals)
@@ -425,9 +439,9 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
     h2 = _mix_np(cpre[spill], chi[spill], clo[spill] ^ np.int64(0x5BD1E995))
 
     if slots3:
-        # 3-level chain: t2 rows NARROW (1 sector at slots2=2 -> ~15ns
-        # gather); its own Poisson tail overflows into the tiny cached t3
-        # instead of forcing wide t2 rows (192B rows measured ~2.5x slower)
+        # 3-level chain: t2 rows NARROW (24B at slots2=2); its own Poisson
+        # tail overflows into the tiny cached t3 instead of forcing wide
+        # (192B) t2 rows
         b2 = max(16, 1 << int(np.ceil(np.log2(max(1, len(spill) / (slots2 * 0.3))))))
         while True:
             order2, sb2, pos2 = _group_pos(h2, b2)
@@ -438,7 +452,7 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
             if b2 * slots2 * cps * 4 * 2 > _T2_BYTE_CAP:
                 raise RuntimeError("canonical t2 overflow exceeds the t3 budget")
             b2 *= 2
-        t2 = np.zeros((b2, slots2 * cps), np.int32)
+        t2 = _alloc(b2, slots2 * cps, t1_cap, "canonical t2")
         _fill(t2, sb2[~over], pos2[~over], spill[order2[~over]], key_lo, key_hi, vals)
         rest = spill[order2[over]]
         if len(rest):
@@ -451,7 +465,7 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
                 b3 *= 2
                 if b3 * slots3 * cps * 4 > _T3_BYTE_CAP:
                     raise RuntimeError("canonical t3 overflow")
-            t3 = np.zeros((b3, slots3 * cps), np.int32)
+            t3 = _alloc(b3, slots3 * cps, t1_cap, "canonical t3")
             _fill(t3, sb3, pos3, rest[order3], key_lo, key_hi, vals)
         return CanonicalHashArrays(t1=t1, t2=t2, t3=t3, slots=slots,
                                    slots2=slots2, slots3=slots3, num_entries=ng)
@@ -462,11 +476,11 @@ def _place_canonical(key_lo, key_hi, vals, cpre, chi, clo, ng,
         if len(pos2) == 0 or int(pos2.max()) < slots2:
             break
         b2 *= 2
-        # t2 may legitimately be LARGE in the HBM-spill tier; only a hard
-        # byte cap (2GB) stops the growth spiral
+        # t2 may legitimately be LARGE in this tier; only a hard byte cap
+        # (2GB) stops the growth spiral
         if b2 * slots2 * cps * 4 > 2 << 30:
             raise RuntimeError("canonical spill table overflow")
-    t2 = np.zeros((b2, slots2 * cps), np.int32)
+    t2 = _alloc(b2, slots2 * cps, t1_cap, "canonical t2")
     _fill(t2, sb2, pos2, spill[order2], key_lo, key_hi, vals)
     return CanonicalHashArrays(t1=t1, t2=t2, t3=t3, slots=slots,
                                slots2=slots2, slots3=max(slots3, 1),
@@ -530,14 +544,13 @@ def build_hash_index(index: DeviceIndexArrays, slots: int = 8, load: float = 0.4
 
 
 # --------------------------------------------------------------------------
-# Seeded-displacement canonical index ("tier S") — round 3.
+# Seeded-displacement canonical index ("tier S").
 #
-# Measured (tools/bench_seed2.py, v5e, 150M entries): a probe = one scalar
-# seed gather (<= 64MB table: adds ~0ns even though the t1 index DEPENDS on
-# it) + ONE 2-slot 24B/32B row gather = 26.6 ns/probe, vs 46.7 for the
-# 3-level chain (two summing row gathers).  Placement freedom comes from a
-# per-bucket u8 seed chosen at build so nearly every entry lands in t1; the
-# residue lives in the tiny cached tail (same shape as the ladder's t3).
+# A probe = one scalar seed gather from a small (<= 64MB, cacheable) seed
+# table + ONE 2-slot 24B/32B row gather, where the 3-level chain needs two
+# row gathers.  Placement freedom comes from a per-bucket u8 seed chosen at
+# build so nearly every entry lands in t1; the residue lives in the tiny
+# cached tail (same shape as the ladder's t3).
 # --------------------------------------------------------------------------
 
 _DISP_SEED_SALT = np.int64(0x94D049BB)
@@ -546,7 +559,7 @@ _DISP_C1 = np.uint32(0x85EBCA6B)
 _DISP_C2 = np.uint32(0xC2B2AE35)
 _DISP_MAX_SEEDS = 256
 _DISP_LOAD = 0.62
-_DISP_SPILL_BUDGET = 400_000  # must stay cached (t3 grows ~16B/entry)
+_DISP_SPILL_BUDGET = 400_000  # keeps t3 cache-sized (t3 grows ~16B/entry)
 
 
 @dataclasses.dataclass
@@ -589,10 +602,12 @@ def build_displaced_index(
     index: DeviceIndexArrays,
     load: float = _DISP_LOAD,
     spill_budget: int = _DISP_SPILL_BUDGET,
+    *,
+    t1_cap: int,
 ) -> DisplacedHashArrays:
     key_lo, key_hi, vals, cpre, chi, clo, ng = _canonical_groups(index)
     return place_displaced(key_lo, key_hi, vals, cpre, chi, clo, ng,
-                           load=load, spill_budget=spill_budget)
+                           load=load, spill_budget=spill_budget, t1_cap=t1_cap)
 
 
 def displaced_buckets_np(cpre, chi, clo, nseed: int) -> np.ndarray:
@@ -608,11 +623,10 @@ def displaced_nseed(ng: int) -> int:
     """Seed-table size for ng entries: pow2 with lambda in (2, 4], but never
     above 32MB while lambda stays placeable.
 
-    64MB seed tables sit above the measured v5e cache cliff: +1.45ns/probe
-    (tools/bench_seed2-style sweep, round 4: 64MB = 27.3ns, 32MB..4MB flat at
-    25.8-25.9ns, bare row gather 18.95ns).  Densifying to lambda <= 4.8 keeps
-    the table at <= 32MB through 161M entries, and applying the same density
-    before giving up raises the single-chip ceiling from 268M to ~322M."""
+    A smaller seed table stays cache-resident; densifying to lambda <= 4.8
+    keeps it at <= 32MB through 161M entries, and at <= 64MB (the cap in
+    place_displaced_core) through ~322M.  The 32MB point is a tuning choice,
+    open to a sweep on the target device."""
     nseed = max(4, 1 << int(np.ceil(np.log2(max(1, ng / 4)))))
     while nseed > (1 << 25) and ng / (nseed >> 1) <= 4.8:
         nseed >>= 1
@@ -625,7 +639,7 @@ def place_displaced_core(
     spill_budget: int = _DISP_SPILL_BUDGET,
     bucket: np.ndarray | None = None,
     nseed: int | None = None,
-    t1_cap: int = _CANON_T1_CAP,
+    t1_cap: int,
     nslots_force: int | None = None,
     u2: np.ndarray | None = None,
     u3: np.ndarray | None = None,
@@ -637,9 +651,10 @@ def place_displaced_core(
     buckets with the shard's seed-table slice size); nslots_force pins the
     slot count so per-shard t1 arrays can stack on a mesh axis.  u2/u3 may
     be precomputed slot-mix lanes (the 64-mer builder passes mix4-based
-    lanes over its four key words; the probe twin must match).  Returns
-    (t1, seeds32, spilled_idx) — the caller builds the spill tail (local
-    per table, or a merged global one for the routed mode)."""
+    lanes over its four key words; the probe twin must match).  t1_cap
+    bounds t1's bytes.  Returns (t1, seeds32, spilled_idx)
+    — the caller builds the spill tail (local per table, or a merged global
+    one for the routed mode)."""
     if ng == 0:
         raise ValueError("empty index")
     cps = 2 + vals.shape[1]
@@ -647,13 +662,13 @@ def place_displaced_core(
     if nseed is None:
         nseed = displaced_nseed(ng)
         if nseed > (1 << 26):
-            raise ValueError("seed table would exceed the measured-free 64MB")
+            raise ValueError("seed table would exceed its 64MB cap")
     if bucket is None:
         bucket = displaced_buckets_np(cpre, chi, clo, nseed)
 
     nslots = nslots_force or max(int(ng / load) & ~1, 64)  # even: row = slot>>1
-    if nslots // 2 * (2 * cps) * 4 > t1_cap:
-        raise ValueError("displaced t1 would exceed the HBM budget")
+    if _over_cap(nslots // 2 * (2 * cps) * 4, t1_cap):
+        raise ValueError("displaced t1 would exceed the device memory budget")
     if u2 is None:
         u2 = _mix_np(cpre, chi, clo ^ _DISP_SEED_SALT)
     if u3 is None:
@@ -818,28 +833,27 @@ def place_displaced_core(
 
 
 def build_spill_t3(spilled, key_lo, key_hi, vals, cpre, chi, clo,
-                   slots3: int = 4) -> np.ndarray:
+                   slots3: int = 4, *, t1_cap: int) -> np.ndarray:
     """Cached spill-tail table for the entries the placement could not seat
     (8-row all-zero = absent; probe twin: lookup.displaced_probe_raw).
 
     Rows start NARROW (4 slots = 48B): the tail is probed unconditionally
-    for every key, and row width dominates its cost even cache-resident —
-    measured at the 150M tier: 16-slot 192B rows +8.7ns/probe, 48B rows
-    +4.1ns (step_decomp4, round 3).  A narrow tail only fits a tiny spill
-    (maxpos < 4 across ~100K buckets needs lambda <= ~0.1), so larger
-    spills escalate a GEOMETRY ladder — wider rows under a growing byte
-    cap — rather than fail: a fatter cached tail still beats losing the
-    whole displaced path to the bsearch replay by ~10x."""
+    for every key, so its row width is paid on every probe even when it is
+    cache-resident.  A narrow tail only fits a tiny spill (maxpos < 4 across
+    ~100K buckets needs lambda <= ~0.1), so larger spills escalate a
+    GEOMETRY ladder — wider rows under a growing byte cap — rather than
+    fail: a fatter tail still beats losing the whole displaced path to the
+    bsearch replay."""
     cps = 2 + vals.shape[1]
     if not len(spilled):
         return np.zeros((8, slots3 * cps), np.int32)
     h3 = _mix_np(cpre[spilled], chi[spilled], clo[spilled] ^ np.int64(0x27D4EB2F))
     # the ladder's last tiers give up cache residency rather than fail: a
     # multi-million-entry spill (seen at 150M-entries-per-shard routed
-    # placements, bench1200m_r5.log) lands in an HBM-resident tail — slower
-    # per probe than a cached one, still ~10x better than losing the whole
-    # displaced path to the bsearch replay.  Any consistent geometry is
-    # exact (the probe reads the stored shape).
+    # placements on the host) lands in a device-memory tail — slower per
+    # probe than a cached one, still better than losing the whole displaced
+    # path to the bsearch replay.  Any consistent geometry is exact (the
+    # probe reads the stored shape).
     for s3, cap in ((slots3, _T3_BYTE_CAP), (slots3 * 2, _T3_BYTE_CAP),
                     (slots3 * 4, 2 * _T3_BYTE_CAP), (slots3 * 8, 4 * _T3_BYTE_CAP),
                     (slots3 * 8, 64 * _T3_BYTE_CAP),
@@ -850,7 +864,7 @@ def build_spill_t3(spilled, key_lo, key_hi, vals, cpre, chi, clo,
         while True:
             order3, sb3, pos3 = _group_pos(h3, b3)
             if len(pos3) == 0 or int(pos3.max()) < s3:
-                t3 = np.zeros((b3, s3 * cps), np.int32)
+                t3 = _alloc(b3, s3 * cps, t1_cap, "displaced spill tail")
                 _fill(t3, sb3, pos3, spilled[order3], key_lo, key_hi, vals)
                 return t3
             b3 *= 2
@@ -858,7 +872,7 @@ def build_spill_t3(spilled, key_lo, key_hi, vals, cpre, chi, clo,
                 break
     raise ValueError(
         f"displaced spill tail overflow: {len(spilled)} spilled entries "
-        "could not be bucketed even HBM-resident — lower the placement "
+        "could not be bucketed even in device memory — lower the placement "
         "lambda (more seeds), raise the load headroom, or use more shards "
         "(smaller per-shard tables spill less)")
 
@@ -869,20 +883,22 @@ def place_displaced(
     spill_budget: int = _DISP_SPILL_BUDGET,
     bucket: np.ndarray | None = None,
     nseed: int | None = None,
-    t1_cap: int = _CANON_T1_CAP,
+    t1_cap: int,
 ) -> DisplacedHashArrays:
     """Single-table displaced index: core placement + local spill tail."""
     t1, seeds32, spilled = place_displaced_core(
         key_lo, key_hi, vals, cpre, chi, clo, ng, load=load,
         spill_budget=spill_budget, bucket=bucket, nseed=nseed, t1_cap=t1_cap)
-    t3 = build_spill_t3(spilled, key_lo, key_hi, vals, cpre, chi, clo)
+    t3 = build_spill_t3(spilled, key_lo, key_hi, vals, cpre, chi, clo,
+                        t1_cap=t1_cap)
     cps = 2 + vals.shape[1]
     return DisplacedHashArrays(t1=t1, seeds=seeds32, t3=t3,
                                slots3=t3.shape[1] // cps,
                                num_entries=ng, wide=vals.shape[1] == 2)
 
 
-def respill_displaced_t3(t3_old: np.ndarray, wide: bool) -> np.ndarray:
+def respill_displaced_t3(t3_old: np.ndarray, wide: bool, *,
+                         t1_cap: int) -> np.ndarray:
     """Re-bucket a spill tail into the current row geometry (cache
     migration: tables cached with the old 16-slot 192B rows reload into
     48B rows without replaying the 30-minute placement).  Entry lanes
@@ -902,4 +918,5 @@ def respill_displaced_t3(t3_old: np.ndarray, wide: bool) -> np.ndarray:
     chi = kh & 0xFF
     clo = key_lo.view(np.uint32).astype(np.int64)
     idx = np.arange(len(e), dtype=np.int64)
-    return build_spill_t3(idx, key_lo, key_hi, vals, cpre, chi, clo)
+    return build_spill_t3(idx, key_lo, key_hi, vals, cpre, chi, clo,
+                          t1_cap=t1_cap)

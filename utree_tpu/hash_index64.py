@@ -4,8 +4,8 @@ Same design as hash_index.CanonicalHashArrays but for 128-bit words with
 4-byte label ids (itree.c:41-43 PACKSIZE=64 -> WTYPE=__uint128_t;
 IXTYPE=uint32_t): keys are four int32 lanes, entries are
 (k0, k1, k2, k3, va, vb) = 24B where va/vb = label+1 of the forward /
-reverse-complement orientation (0 = miss).  One t1 row = 2 entries = 48B
-(two gather sectors); t2 is the cache-resident wide-row spill table.
+reverse-complement orientation (0 = miss).  One t1 row = 2 entries = 48B;
+t2 is the small (cacheable) wide-row spill table.
 
 Values derive from the reference probe's own results over the as-stored bin
 table (quirks included) — the 64-mer twin of hash_index._reference_hits,
@@ -19,7 +19,8 @@ import dataclasses
 
 import numpy as np
 
-from utree_tpu.hash_index import _CANON_T1_CAP, _CANON_T2_BUDGET, _M1, _M2, _M3, _rc64
+from utree_tpu.hash_index import (_CANON_T2_BUDGET, _M1, _M2, _M3, _alloc, _over_cap,
+                                  _rc64)
 from utree_tpu.index import DeviceIndexArrays
 
 CANON64_SLOTS = 2
@@ -181,10 +182,13 @@ def build_canonical_hash_index64(
     slots: int | None = None,
     load: float | None = None,
     slots2: int | None = None,
+    *,
+    t1_cap: int,
 ) -> CanonicalHash64Arrays:
     """64-mer canonical table with the same geometry LADDER as the 32-mer
     one (hash_index.build_canonical_hash_index): tiny-cached-t2 tier, then
-    a 3-level narrow-row chain, then the wide-t2 fallback."""
+    a 3-level narrow-row chain, then the wide-t2 fallback.  t1_cap bounds
+    each array's bytes."""
     lanes, k0, k1, k2, k3, ng = _canonical_groups64(index)
 
     if slots is not None:
@@ -199,7 +203,8 @@ def build_canonical_hash_index64(
     err = None
     for s_, load_, s2_, budget_, s3_ in tiers:
         try:
-            return _place64(lanes, k0, k1, k2, k3, ng, s_, load_, s2_, budget_, s3_)
+            return _place64(lanes, k0, k1, k2, k3, ng, s_, load_, s2_, budget_, s3_,
+                            t1_cap=t1_cap)
         except (ValueError, RuntimeError) as e:
             err = e
     raise ValueError(f"canonical64 table does not fit any geometry tier: {err}")
@@ -211,21 +216,23 @@ def _fill64(table, sb, pos, src, lanes):
 
 
 def _place64(lanes, k0, k1, k2, k3, ng, slots, load, slots2,
-             t2_budget_entries, slots3=0) -> CanonicalHash64Arrays:
+             t2_budget_entries, slots3=0, *,
+             t1_cap: int) -> CanonicalHash64Arrays:
     h1 = _mix4_np(k0, k1, k2, k3, 0)
     hb = _mix4_np(k0, k1, k2, k3, 0x6A09E667)
     with np.errstate(over="ignore"):
         g = h1 ^ ((hb << np.uint32(15)) | (hb >> np.uint32(17)))
     b1 = max(8, 1 << int(np.ceil(np.log2(max(1, ng / (slots * load))))))
-    while b1 * slots * 24 > _CANON_T1_CAP:
+    while b1 > 8 and _over_cap(b1 * slots * 24, t1_cap):
         b1 //= 2
     while True:
         order1, sb, pos = _group_positions((g & np.uint32(b1 - 1)).astype(np.int64))
         fits = pos < slots
         if int((~fits).sum()) <= t2_budget_entries:
             break
-        if b1 * slots * 24 * 2 > _CANON_T1_CAP:
-            raise ValueError("canonical64 table would exceed the HBM budget")
+        if _over_cap(b1 * slots * 24 * 2, t1_cap):
+            raise ValueError(
+                "canonical64 table would exceed the device memory budget")
         b1 *= 2
     t1 = np.zeros((b1, slots * 6), np.int32)
     _fill64(t1, sb[fits], pos[fits], order1[fits], lanes)
@@ -249,7 +256,7 @@ def _place64(lanes, k0, k1, k2, k3, ng, slots, load, slots2,
             if b2 * slots2 * 24 * 2 > 1 << 30:
                 raise RuntimeError("canonical64 t2 overflow exceeds the t3 budget")
             b2 *= 2
-        t2 = np.zeros((b2, slots2 * 6), np.int32)
+        t2 = _alloc(b2, slots2 * 6, t1_cap, "canonical64 t2")
         _fill64(t2, sb2[~over], pos2[~over], spill[order2[~over]], lanes)
         rest = spill[order2[over]]
         if len(rest):
@@ -262,7 +269,7 @@ def _place64(lanes, k0, k1, k2, k3, ng, slots, load, slots2,
                 b3 *= 2
                 if b3 * slots3 * 24 > 8 << 20:
                     raise RuntimeError("canonical64 t3 overflow")
-            t3 = np.zeros((b3, slots3 * 6), np.int32)
+            t3 = _alloc(b3, slots3 * 6, t1_cap, "canonical64 t3")
             _fill64(t3, sb3, pos3, rest[order3], lanes)
         return CanonicalHash64Arrays(t1, t2, t3, slots, slots2, slots3, ng)
 
@@ -274,15 +281,15 @@ def _place64(lanes, k0, k1, k2, k3, ng, slots, load, slots2,
         b2 *= 2
         if b2 * slots2 * 24 > 2 << 30:
             raise RuntimeError("canonical64 spill table overflow")
-    t2 = np.zeros((b2, slots2 * 6), np.int32)
+    t2 = _alloc(b2, slots2 * 6, t1_cap, "canonical64 t2")
     _fill64(t2, sb2, pos2, spill[order2], lanes)
     return CanonicalHash64Arrays(t1, t2, t3, slots, slots2, max(slots3, 1), ng)
 
 
 # ---- seeded-displacement tier (one 48B row gather per probe) -------------
 # The 64-mer twin of hash_index.DisplacedHashArrays: entries are 6 int32
-# (k0..k3, va, vb) so a 2-slot t1 row is 48B = two gather sectors; the
-# cached u8 seed table and the slot-mix schedule are shared with the 32-mer
+# (k0..k3, va, vb) so a 2-slot t1 row is 48B; the u8 seed table and the
+# slot-mix schedule are shared with the 32-mer
 # placement via place_displaced_core (u2/u3 overridden with mix4 lanes).
 
 _DISP64_SALT_U2 = 0x94D049BB
@@ -319,6 +326,8 @@ def build_displaced_index64(
     index: DeviceIndexArrays,
     load: float | None = None,
     spill_budget: int | None = None,
+    *,
+    t1_cap: int,
 ) -> Displaced64Arrays:
     from utree_tpu.hash_index import (_DISP_LOAD, _DISP_SPILL_BUDGET,
                                       _group_pos, displaced_nseed,
@@ -329,7 +338,7 @@ def build_displaced_index64(
         raise ValueError("empty index")
     nseed = displaced_nseed(ng)
     if nseed > (1 << 26):
-        raise ValueError("seed table would exceed the measured-free 64MB")
+        raise ValueError("seed table would exceed its 64MB cap")
     bucket = displaced_buckets64_np(k0, k1, k2, k3, nseed)
     u2 = _mix4_np(k0, k1, k2, k3, _DISP64_SALT_U2)
     u3 = _mix4_np(k0, k1, k2, k3, _DISP64_SALT_U3)
@@ -338,10 +347,10 @@ def build_displaced_index64(
         lanes[0], lanes[1], vals, None, None, None, ng,
         load=_DISP_LOAD if load is None else load,
         spill_budget=_DISP_SPILL_BUDGET if spill_budget is None else spill_budget,
-        bucket=bucket, nseed=nseed, u2=u2, u3=u3)
+        bucket=bucket, nseed=nseed, t1_cap=t1_cap, u2=u2, u3=u3)
 
-    # narrow tail rows (2 slots = 48B): probed unconditionally, so row width
-    # dominates its cost even cache-resident (see hash_index.build_spill_t3)
+    # narrow tail rows (2 slots = 48B): probed unconditionally, so its row
+    # width is paid on every probe (see hash_index.build_spill_t3)
     slots3 = 2
     t3 = np.zeros((8, slots3 * 6), np.int32)
     if len(spilled):
@@ -355,7 +364,7 @@ def build_displaced_index64(
             b3 *= 2
             if b3 * slots3 * 6 * 4 > 32 << 20:
                 raise ValueError("displaced64 spill tail overflow")
-        t3 = np.zeros((b3, slots3 * 6), np.int32)
+        t3 = _alloc(b3, slots3 * 6, t1_cap, "displaced64 spill tail")
         _fill64(t3, sb3, pos3, spilled[order3], lanes)
     return Displaced64Arrays(t1=t1, seeds=seeds32, t3=t3, slots3=slots3,
                              num_entries=ng)

@@ -1,9 +1,9 @@
 """Device-resident search index.
 
 The reference search holds the CTR dump as one flat byte array in RAM and
-binary-searches 7-byte records (itree.c:673-730).  TPUs have no fast 64-bit
-integer path and hate byte-packed strides, so the device layout is a
-structure-of-arrays with the same information:
+binary-searches 7-byte records (itree.c:673-730).  The device layout is a
+structure-of-arrays with the same information, every word held in 32-bit
+lanes:
 
   bin_ix   int32[2^24+1]  prefix-bin start offsets (as stored in the .ctr,
                            quirks included — see formats.compute_bin_ix)
@@ -148,23 +148,11 @@ class DeviceIndexArrays:
             self.config,
         )
 
-    def packed_records(self, pad: int = 16) -> np.ndarray:
-        """(N+pad, 2) int32: lane0 = suffix lo32, lane1 = hi8 | ix<<8 — the
-        single-DMA record layout for the Pallas lookup kernel (requires
-        ix < 2^24; BAD_IX for 2-byte IXTYPE fits)."""
-        n = self.num_records
-        out = np.zeros((n + pad, 2), np.int32)
-        out[:n, 0] = self.suf_lo[:n].view(np.int32) if self.suf_lo.dtype != np.int32 else self.suf_lo[:n]
-        out[:n, 1] = self.suf_hi[:n] | (self.ix[:n].astype(np.int64) << 8).astype(np.int32)
-        return out
-
-    def device_put(self, sharding=None, with_packed: bool = False):
+    def device_put(self, sharding=None):
         """Move the table arrays to device; returns a dict pytree."""
         import jax
 
         arrs = {"bin_ix": self.bin_ix, "suf_hi": self.suf_hi, "suf_lo": self.suf_lo, "ix": self.ix}
-        if with_packed:
-            arrs["packed"] = self.packed_records()
         if sharding is None:
             return {k: jax.device_put(v) for k, v in arrs.items()}
         return {k: jax.device_put(v, sharding) for k, v in arrs.items()}

@@ -6,6 +6,11 @@ out-of-tree into .oracle/bin and invoke them on test fixtures; outputs are
 the golden truth our implementation must match bit-for-bit (single-threaded,
 since the reference's multithreaded output line order is nondeterministic,
 itree.c:1009-1101).
+
+The reference sources (itree.c, xtree.c) are looked up in
+$UTREE_REFERENCE_DIR, else in the checkout's own `reference/` directory
+(gitignored).
+Golden tests skip when they are absent (`reference_available`).
 """
 
 from __future__ import annotations
@@ -16,7 +21,13 @@ import subprocess
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ORACLE_BIN = REPO / ".oracle" / "bin"
-REF_SRC = pathlib.Path("/root/reference/itree.c")
+REF_DIR = pathlib.Path(os.environ.get("UTREE_REFERENCE_DIR", REPO / "reference"))
+REF_SRC = REF_DIR / "itree.c"
+XTREE_SRC = REF_DIR / "xtree.c"
+
+
+def reference_available() -> bool:
+    return REF_SRC.exists() and XTREE_SRC.exists()
 
 _MODES = {
     "utree-build": "BUILD",
@@ -54,7 +65,7 @@ def build_xtree_oracle() -> pathlib.Path:
     if not exe.exists():
         subprocess.run(
             ["gcc", "-m64", "-std=gnu11", "-O2", "-fopenmp", "-fgnu89-inline",
-             "/root/reference/xtree.c", "-o", str(exe), "-lm", "-lz"],
+             str(XTREE_SRC), "-o", str(exe), "-lm", "-lz"],
             check=True, capture_output=True,
         )
     return exe

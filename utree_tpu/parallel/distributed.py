@@ -6,8 +6,9 @@ global mesh over all devices, per-host input pipelines feeding each host's
 addressable shard of the read batch, and deterministic collective merges so
 sample-level outputs are bit-identical at any host count.
 
-This module is exercised on single-process virtual meshes in CI; on a real
-pod slice call `init_distributed()` before anything else touches JAX.
+This module is exercised on single-process virtual meshes and two local
+processes in the tests; on real hosts call `init_distributed()` before
+anything else touches JAX.
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ import numpy as np
 
 def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Initialize multi-process JAX (DCN across hosts, ICI within a slice).
-    No-ops on a single process with no coordinator configured."""
+    """Initialize multi-process JAX (one process per host).  No-ops on a
+    single process with no coordinator configured."""
     if coordinator is None and num_processes is None:
-        return  # single-process (or env-configured TPU pod auto-detection)
+        return  # single process
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
@@ -105,7 +106,7 @@ def search_file_multihost(pipe, reads_path: str, out_path: str, *,
     merged bytes equal a single-host run exactly.  Per-host classified/read
     counts merge with an exact integer psum (merge_sample_tallies).
 
-    Requires a shared filesystem across hosts (the standard TPU-pod setup);
+    Requires a shared filesystem across hosts;
     the reads file must be plain FASTA (range partitioning seeks by record).
     Returns the number of records this host searched."""
     import pathlib

@@ -1,10 +1,10 @@
 """Sharded search: the distributed modes of the framework.
 
 The reference is one process on one node (SURVEY.md §2.3); these are the
-TPU-native equivalents over a jax.sharding Mesh:
+device equivalents over a jax.sharding Mesh:
 
   replicated_search_step   DP: reads sharded over `data`, table replicated in
-                           every chip's HBM (the L4 ~500MB regime).  XLA's
+                           every device's memory (the L4 ~500MB regime).  XLA's
                            auto-SPMD partitions the elementwise/gather work;
                            no collectives needed until sample-level tallies.
 

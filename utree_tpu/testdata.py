@@ -98,3 +98,27 @@ def make_toy_reads(
                 arr[mut] = _BASES[rng.integers(0, 4, size=int(mut.sum()))]
                 seq = arr.tobytes()
             fa.write(b">read%d some description\n" % i + seq + b"\n")
+
+
+def build_spec_db(refs, tax_map, wd, cfg, reads=None, rc_modes=(False, True)) -> dict:
+    """Toy DB through the in-repo build -> .ubt -> .ctr path, plus the host
+    spec's classifications (search_host.search_file) of `reads`, keyed
+    "cls" (forward) and "cls_rc" (with reverse complement)."""
+    import pathlib
+
+    from utree_tpu.build import build_database
+    from utree_tpu.formats import write_ctr_from_ubt, write_ubt
+    from utree_tpu.search_host import HostIndex, search_file
+
+    wd = pathlib.Path(wd)
+    res = build_database(str(refs), str(tax_map), cfg)
+    out = {"ubt": wd / "db.ubt", "ctr": wd / "db.ctr"}
+    write_ubt(str(out["ubt"]), res.words, res.ixs, res.labels.strings, cfg)
+    write_ctr_from_ubt(str(out["ubt"]), str(out["ctr"]), cfg)
+    if reads is not None:
+        idx = HostIndex.from_ctr(str(out["ctr"]), cfg)
+        for rc in rc_modes:
+            key = "cls_rc" if rc else "cls"
+            out[key] = wd / f"{key}.txt"
+            search_file(idx, str(reads), str(out[key]), do_rc=rc)
+    return out

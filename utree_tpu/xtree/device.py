@@ -1,10 +1,10 @@
 """XTree ALIGN device path: the hot per-position k-mer probe (xtree.c:1024-1081)
-as a TPU step over a seeded-displacement hash.
+as a device step over a seeded-displacement hash.
 
 The host engine's `_lookup` replays LBS_k (xtree.c:170-178) with a masked
-bisection; on TPU that is a chain of dependent gathers.  Instead the device
-probes a canonical dual-value displaced hash (hash_index.place_displaced —
-the same measured 26.6ns/probe geometry as the utree tier-S table):
+bisection; on a device that is a chain of dependent gathers.  Instead the
+device probes a canonical dual-value displaced hash (hash_index.place_displaced
+— the same geometry as the utree tier-S table):
 
   key   = min(word, rc(word)) of the k-mer word (2k <= 62 bits in two lanes)
   entry = (key_lo, key_hi, seed_fwd+1, seed_rc+1), where the values are what
@@ -76,7 +76,12 @@ class XtreeDeviceIndex:
 def build_xtree_device_index(db: XtreeDB, aligner_sfx: np.ndarray,
                              aligner_bins: np.ndarray) -> XtreeDeviceIndex:
     """Canonical displaced hash over the aligner's pod arrays (sentinel
-    included, so the one-past quirk values match the host replay)."""
+    included, so the one-past quirk values match the host replay), capped
+    at the memory budget of the default device it is placed onto."""
+    import jax
+
+    from utree_tpu.memory import table_budget
+
     k, pl, sl = db.k, db.pl, db.sl
     if 2 * k > 62:
         raise ValueError("xtree device path supports k <= 31")
@@ -108,7 +113,8 @@ def build_xtree_device_index(db: XtreeDB, aligner_sfx: np.ndarray,
     cpre = chi32 >> 8
     chi = chi32 & 0xFF
     clo = (ck & np.uint64(0xFFFFFFFF)).astype(np.int64)
-    built = place_displaced(key_lo, key_hi, vals2d, cpre, chi, clo, ng)
+    built = place_displaced(key_lo, key_hi, vals2d, cpre, chi, clo, ng,
+                            t1_cap=table_budget(jax.devices()[0]))
     return XtreeDeviceIndex(tables=built.device_put(), k=k, pl=pl, sl=sl,
                             num_entries=ng)
 
